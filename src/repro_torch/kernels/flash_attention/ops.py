@@ -1,0 +1,71 @@
+"""Wrapper for the flash-attention forward kernel (prefill attention).
+
+GQA-native: q (B, Sq, H, D) attends over k/v (B, Skv, Hkv, D) with query
+head h reading KV head h // (H / Hkv).  A CPU tensor goes to the plain
+PyTorch version (`ref.py`); a CUDA tensor launches the hand-written kernel
+(`csrc/flash_attention.cu`) or raises.  `flash_attention.launches` counts
+kernel launches and nothing else.
+"""
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+
+@functools.cache
+def _bind():
+    fn = build.load("flash_attention").flash_attention_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise ValueError(f"flash_attention kernel takes bf16 q/k/v; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in (32, 64, 128, 256):
+        raise ValueError(f"flash_attention kernel needs head_dim in 32, 64, "
+                         f"128, 256; got {D}")
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash_attention: all inputs on one CUDA device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, Sq, Skv, H, Hkv, D, int(causal),
+                      1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).  Returns (B, Sq, H, D) in
+    q's dtype.  Raises ValueError when H % Hkv != 0 or the batch, head dim
+    or K/V shapes disagree."""
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} disagree")
+    if H % k.shape[2] != 0:
+        raise ValueError(
+            f"flash_attention: {H} query heads are not divisible by "
+            f"{k.shape[2]} KV heads — GQA grouping needs H % Hkv == 0")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    return _launch(q, k, v, causal)
+
+
+flash_attention.launches = 0

@@ -1,0 +1,283 @@
+"""Attention, GQA half — PyTorch port of `repro.nn.attention`.
+
+Two modes, as the serving path uses them:
+  * prefill (cache=None, make_cache=True): causal self-attention over the
+    prompt through the flash kernel, then the batch's K/V laid out as a
+    contiguous cache (int8-quantized when the config says so);
+  * paged decode (cache = page pools, page_table given, S == 1): scatter
+    this token's K/V into its physical page, then attend over the row's
+    pages through the paged kernel.
+
+Routes the kernels do not take are decided by the config, as the
+reference decides them: sliding-window, logit-softcap and non-causal
+prefills run the plain masked softmax (`_softmax_attend`); windowed or
+softcapped paged decode gathers the row's pages and masks
+(`_paged_append_gqa`); int8 pools are dequantized before the paged kernel.
+gemma-7b takes none of those routes.
+
+All paths accumulate in f32 and cast the result once to the activation
+dtype.  Page pools are updated in place (the reference returns new pools
+from a donated jit argument; here the write is the same, without a copy).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.layers import apply_rope, rmsnorm, rope_angles
+
+Params = Dict[str, Any]
+
+NEG_INF = -2.0e38
+
+
+# =================================================================== masks
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
+          window: int, prefix_len: int) -> torch.Tensor:
+    """qpos (..., Q), kpos (..., K) -> bool (..., Q, K)."""
+    q = qpos[..., :, None]
+    k = kpos[..., None, :]
+    if causal:
+        ok = k <= q
+        if prefix_len:
+            ok = ok | (k < prefix_len)
+    else:
+        ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                        dtype=torch.bool, device=qpos.device)
+    if window > 0:
+        ok = ok & (q - k < window)
+    return ok
+
+
+def _softmax_attend(q, k, v, mask, softcap: float) -> torch.Tensor:
+    """q (B,Q,Hkv,G,D), k/v (B,K,Hkv,D), mask (B|1,Q,K) -> (B,Q,Hkv,G,D) f32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+
+
+# ======================================================== int8 KV cache
+def _kv_quant(x: torch.Tensor):
+    """Symmetric per-(token, head) int8 quantization of K/V slices.
+    x: (B, S, H, D) -> (codes int8, scale f32 (B, S, H)).  torch.round
+    rounds half to even, as jnp.round does."""
+    xf = x.float()
+    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _kv_dequant(codes: torch.Tensor, scale: torch.Tensor,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    return (codes.float() * scale[..., None]).to(dtype)
+
+
+# ================================================================== module
+def _gqa_qkv(params, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.matmul(x, params["w_q"].to(x.dtype))
+    k = torch.matmul(x, params["w_k"].to(x.dtype))
+    v = torch.matmul(x, params["w_v"].to(x.dtype))
+    q = q.reshape(B, S, Hkv, H // Hkv, D)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    cos, sin = rope_angles(positions, D, cfg.rope_theta)
+    qf = apply_rope(q.reshape(B, S, H, D), cos, sin)
+    k = apply_rope(k, cos, sin)
+    return qf.reshape(B, S, Hkv, H // Hkv, D), k, v
+
+
+def attention(
+    params: Params,
+    x: torch.Tensor,                    # (B, S, d_model)
+    cfg: ModelConfig,
+    *,
+    layer_window: int = 0,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[torch.Tensor] = None,
+    make_cache: bool = False,
+    cache_len: int = 0,
+    page_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Prefill (cache=None, optionally make_cache) or paged decode (cache
+    = page pools, page_table (B, T), cache_pos (B,) per-row positions).
+    Returns (y (B, S, d_model), new_cache)."""
+    if cfg.attn_type != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: attn_type {cfg.attn_type!r} is not ported yet")
+    B, S, _ = x.shape
+    dev = x.device
+    positions = (torch.arange(S, device=dev)[None, :].expand(B, S)
+                 if cache_pos is None else cache_pos[:, None])
+
+    q, k, v = _gqa_qkv(params, x, cfg, positions)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    new_cache = None
+
+    if cache is not None:
+        if page_table is None:
+            raise NotImplementedError(
+                "contiguous-cache decode is not ported; pass a page_table")
+        if S == 1 and layer_window <= 0 and cfg.logit_softcap <= 0:
+            # the paged kernel walks only each row's live tokens; int8
+            # pools are dequantized first (identical values to the
+            # gather-then-dequantize route)
+            new_cache = _paged_scatter_gqa(cache, k, v, cfg, cache_pos,
+                                           page_table)
+            if cfg.kv_cache_dtype == "int8":
+                kp = _kv_dequant(new_cache["k"], new_cache["k_scale"], k.dtype)
+                vp = _kv_dequant(new_cache["v"], new_cache["v_scale"], v.dtype)
+            else:
+                kp, vp = new_cache["k"], new_cache["v"]
+            o = paged_attention(q[:, 0].reshape(B, H, D), kp, vp,
+                                page_table, cache_pos)
+            o = o.reshape(B, 1, Hkv, H // Hkv, D)
+        else:
+            kc, vc, new_cache = _paged_append_gqa(cache, k, v, cfg,
+                                                  cache_pos, page_table)
+            kpos = torch.arange(kc.shape[1], device=dev)[None, :]
+            cp = cache_pos.long()[:, None]
+            valid = kpos <= cp
+            if layer_window > 0:
+                valid = valid & (kpos > cp - layer_window)
+            scale = 1.0 / math.sqrt(D)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), kc.float()) * scale
+            if cfg.logit_softcap > 0:
+                s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
+            s = torch.where(valid[:, None, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            p = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.float())
+    else:
+        if cfg.causal and layer_window <= 0 and cfg.logit_softcap <= 0:
+            o = flash_attention(q.reshape(B, S, H, D), k, v, causal=True)
+            o = o.reshape(B, S, Hkv, H // Hkv, D)
+        else:
+            mask = _mask(positions, positions, causal=cfg.causal,
+                         window=layer_window, prefix_len=0)
+            o = _softmax_attend(q, k, v, mask, cfg.logit_softcap)
+        if make_cache:
+            new_cache = _make_cache(k, v, cfg, layer_window, cache_len or S)
+
+    o = o.to(x.dtype).reshape(B, S, cfg.q_dim)
+    y = torch.matmul(o, params["w_o"].to(x.dtype))
+    return y, new_cache
+
+
+def _make_cache(k, v, cfg: ModelConfig, layer_window: int, L: int):
+    """Lay the prefill's K/V (B, S, Hkv, D) out as a length-L cache:
+    positions [0, S) filled, the rest zero; sliding-window layers keep the
+    last `window` tokens at slot = pos % window; int8 configs store codes
+    plus per-(token, head) scales."""
+    B, S = k.shape[:2]
+    ring = layer_window if 0 < layer_window <= L else 0
+    Lc = ring if ring else L
+    int8 = cfg.kv_cache_dtype == "int8"
+    shape = (B, Lc, cfg.n_kv_heads, cfg.head_dim)
+    if int8:
+        k_st, ks_full = _kv_quant(k)
+        v_st, vs_full = _kv_quant(v)
+        kc = torch.zeros(shape, dtype=torch.int8, device=k.device)
+        ksc = torch.zeros(shape[:3], dtype=torch.float32, device=k.device)
+        vsc = torch.zeros_like(ksc)
+    else:
+        k_st, v_st = k, v
+        kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
+    vc = torch.zeros_like(kc)
+    if ring:
+        n_keep = min(S, ring)
+        slots = torch.arange(S - n_keep, S, device=k.device) % ring
+        kc[:, slots] = k_st[:, -n_keep:]
+        vc[:, slots] = v_st[:, -n_keep:]
+        if int8:
+            ksc[:, slots] = ks_full[:, -n_keep:]
+            vsc[:, slots] = vs_full[:, -n_keep:]
+    else:
+        kc[:, :S] = k_st
+        vc[:, :S] = v_st
+        if int8:
+            ksc[:, :S] = ks_full
+            vsc[:, :S] = vs_full
+    cache = {"k": kc, "v": vc}
+    if int8:
+        cache.update({"k_scale": ksc, "v_scale": vsc})
+    return cache
+
+
+def _paged_ops(pool_leaf, cache_pos, page_table):
+    """Scatter/gather closures over one page pool shape family.
+
+    Pool leaves carry (P, page, ...); cache_pos (B,) is each row's write
+    position and page_table (B, T) its block→physical-page map.  `scatter`
+    writes this step's (B, 1, ...) entries at (physical page, offset) in
+    place; `gather` rebuilds the row-ordered (B, T·page, ...) view.
+
+    Each active row's target page is exclusively owned (the arena COWs
+    shared pages before the step), so the scatter rows never collide except
+    on the reserved scratch page that inactive rows aim at — whose contents
+    are never read for an active row.  The block index is clamped to the
+    table (as the reference's gather clamps): an inactive row may carry a
+    stale position one past its last page.
+    """
+    page = pool_leaf.shape[1]
+    B, T = page_table.shape
+    pos = cache_pos.long()
+    block = torch.clamp(pos // page, max=T - 1)
+    offset = pos % page
+    phys = page_table[torch.arange(B, device=page_table.device), block].long()
+
+    def scatter(pool, new):
+        pool[phys, offset] = new[:, 0].to(pool.dtype)
+        return pool
+
+    def gather(pool):
+        return pool[page_table.long()].reshape((B, T * page) + pool.shape[2:])
+
+    return scatter, gather
+
+
+def _paged_append_gqa(cache, k, v, cfg: ModelConfig, cache_pos, page_table):
+    """Paged decode append + gather for GQA caches: k/v pools
+    (P, page, Hkv, D) (+ int8 scales (P, page, Hkv)); k/v are this step's
+    (B, 1, Hkv, D) projections.  Returns (kc, vc, new_cache) with kc/vc
+    gathered to (B, T·page, Hkv, D) in logical position order."""
+    new_cache = _paged_scatter_gqa(cache, k, v, cfg, cache_pos, page_table)
+    _, gather = _paged_ops(cache["k"], cache_pos, page_table)
+    if cfg.kv_cache_dtype == "int8":
+        kc = _kv_dequant(gather(new_cache["k"]), gather(new_cache["k_scale"]),
+                         k.dtype)
+        vc = _kv_dequant(gather(new_cache["v"]), gather(new_cache["v_scale"]),
+                         v.dtype)
+    else:
+        kc, vc = gather(new_cache["k"]), gather(new_cache["v"])
+    return kc, vc, new_cache
+
+
+def _paged_scatter_gqa(cache, k, v, cfg: ModelConfig, cache_pos, page_table):
+    """Write this step's K/V (quantized for int8 pools) into the pools in
+    place and return the cache dict, without materializing the gathered
+    (B, T·page, ...) view — the paged kernel reads the pools through the
+    page table itself."""
+    scatter, _ = _paged_ops(cache["k"], cache_pos, page_table)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        return {"k": scatter(cache["k"], kq),
+                "v": scatter(cache["v"], vq),
+                "k_scale": scatter(cache["k_scale"], ks),
+                "v_scale": scatter(cache["v_scale"], vs)}
+    return {"k": scatter(cache["k"], k), "v": scatter(cache["v"], v)}

@@ -1,0 +1,130 @@
+"""Block assembly and the layer stack — PyTorch port of
+`repro.nn.transformer` (the dense attention block).
+
+The reference scans homogeneous runs of layers over stacked parameters;
+the port keeps that stacked layout (so weights and caches carry over leaf
+for leaf) and runs each scanned segment as a Python loop over its layers.
+
+The residual stream is carried as the compiled reference carries it.
+Each residual add sums bf16-rounded operands in f32, and XLA keeps that
+sum unrounded on its way into the next RMSNorm (the add fuses with the
+norm's f32 upcast) while the next add reads it rounded to bf16.  Across a
+scanned segment's layers the carry is a bf16 array, so there the stream
+is rounded at every layer boundary.  Following the same rounding points
+keeps the port's bf16 activations bit-equal to the reference's on the
+CPU, which is what makes greedy tokens identical near ties.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.nn.attention import attention
+from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.layers import mlp, rmsnorm
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+def layer_kind(cfg: ModelConfig, i: int) -> str:
+    if cfg.family == "ssm":
+        if cfg.slstm_every and (i % cfg.slstm_every == cfg.slstm_every - 1):
+            return "slstm"
+        return "mlstm"
+    if cfg.hybrid_parallel:
+        return "hybrid"
+    return "attn"
+
+
+def _block_signature(cfg: ModelConfig, i: int):
+    """Layers with equal signatures share block structure (and stack)."""
+    return (layer_kind(cfg, i), cfg.window_for_layer(i), cfg.layer_is_moe[i])
+
+
+def stack_plan(cfg: ModelConfig, min_group: int = 4) -> List[Tuple[int, int, bool]]:
+    """Partition layers into (start, length, scanned) segments: maximal runs
+    of identical signatures become stacked groups, singletons/short runs
+    stand alone — the reference's plan, so the param trees line up."""
+    if not cfg.scan_layers:
+        min_group = max(min_group, 10**9)
+    segs: List[Tuple[int, int, bool]] = []
+    i = 0
+    while i < cfg.n_layers:
+        j = i
+        sig = _block_signature(cfg, i)
+        while j < cfg.n_layers and _block_signature(cfg, j) == sig:
+            j += 1
+        run = j - i
+        if run >= min_group:
+            segs.append((i, run, True))
+        else:
+            segs.extend((k, 1, False) for k in range(i, j))
+        i = j
+    return segs
+
+
+def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
+                cache: Optional[Params] = None,
+                cache_pos=None, make_cache: bool = False, cache_len: int = 0,
+                page_table=None) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Pre-norm attention + gated MLP block over the residual stream `x`
+    (bf16, or the f32 unrounded sum a previous block returned).  Returns
+    (the f32 unrounded residual sum, new_cache)."""
+    kind = layer_kind(cfg, i)
+    if kind != "attn" or cfg.layer_is_moe[i]:
+        raise NotImplementedError(
+            f"{cfg.name}: layer {i} ({kind}, moe={cfg.layer_is_moe[i]}) is "
+            "not ported yet")
+    act = torch.bfloat16
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps).to(act)
+    y, new_attn = attention(
+        bp["attn"], h, cfg, layer_window=cfg.window_for_layer(i),
+        cache=cache.get("attn") if cache else None,
+        cache_pos=cache_pos, make_cache=make_cache, cache_len=cache_len,
+        page_table=page_table)
+    mid = x.to(act).float() + y.float()
+    h2 = rmsnorm(bp["norm2"], mid, cfg.norm_eps).to(act)
+    out = mid.to(act).float() + mlp(bp["mlp"], h2, cfg.act).float()
+    return out, ({"attn": new_attn} if new_attn is not None else None)
+
+
+def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                caches: Optional[List[Any]] = None,
+                cache_pos=None, make_cache: bool = False, cache_len: int = 0,
+                page_table=None) -> Tuple[torch.Tensor, Optional[List[Any]]]:
+    """Run every segment of `stack_plan(cfg)`.  Stacked segments index
+    their (L, ...) params and caches per layer; a new stacked cache from a
+    prefill is stacked back to (L, ...) leaves.  Returns the residual
+    stream (f32 unrounded after a single block, bf16 after a stacked
+    segment) and the caches."""
+    new_caches: List[Any] = []
+    for seg_idx, (start, length, scanned) in enumerate(stack_plan(cfg)):
+        seg_params = params["segments"][seg_idx]
+        seg_cache = caches[seg_idx] if caches is not None else None
+        kw = dict(cache_pos=cache_pos, make_cache=make_cache,
+                  cache_len=cache_len, page_table=page_table)
+        if not scanned:
+            x, nc = apply_block(seg_params, x, cfg, start, cache=seg_cache,
+                                **kw)
+            new_caches.append(nc)
+            continue
+        layer_caches = []
+        for li in range(length):
+            bp = tree_map(lambda a, li=li: a[li], seg_params)
+            lc = (tree_map(lambda a, li=li: a[li], seg_cache)
+                  if seg_cache is not None else None)
+            x, nc = apply_block(bp, x, cfg, start, cache=lc, **kw)
+            x = x.to(torch.bfloat16)        # the scan carry is bf16
+            layer_caches.append(nc)
+        if seg_cache is not None:
+            new_caches.append(seg_cache)    # pools were written in place
+        elif make_cache:
+            new_caches.append(tree_map(lambda *ls: torch.stack(ls),
+                                       *layer_caches))
+        else:
+            new_caches.append(None)
+    if all(c is None for c in new_caches):
+        return x, None
+    return x, new_caches

@@ -1,0 +1,159 @@
+"""The port's kernel wrappers on the CPU, where they take the plain PyTorch
+versions, held against the reference's jnp oracles (`ref.py`) on the same
+numpy inputs, at the shapes and tolerances of `tests/test_kernels.py`:
+3e-4 in f32, 2e-2 in bf16 (one bf16 ulp near 1 is 2**-7 ≈ 8e-3; the two
+frameworks round the final cast and sum in different orders).  The CUDA
+kernels themselves are held against the same plain versions on the card
+by `chip_smoke.py`."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import flash_attention_ref as _flash_ref
+from repro.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
+
+flash_attention_ref = jax.jit(_flash_ref, static_argnames="causal")
+paged_attention_ref = jax.jit(paged_attention_ref)
+DTYPES = {"float32": (jnp.float32, torch.float32, 3e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _both(x: np.ndarray, jdt, tdt):
+    """The same f32 numpy values in both frameworks, rounded to the dtype
+    (both round to nearest even)."""
+    return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s,d,causal", [(128, 32, True), (200, 64, False),
+                                        (256, 16, True)])
+def test_flash_plain_matches_ref(s, d, causal, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(s + d)
+    B, H = 2, 3
+    q, k, v = (rng.standard_normal((B, s, H, d)).astype(np.float32)
+               for _ in range(3))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, jdt, tdt) for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=causal)
+    fold = lambda x: x.transpose(0, 2, 1, 3).reshape(B * H, s, d)  # noqa: E731
+    want = flash_attention_ref(fold(jq), fold(jk), fold(jv), causal=causal)
+    want = want.reshape(B, H, s, d).transpose(0, 2, 1, 3)
+    assert got.dtype == tdt and got.shape == (B, s, H, d)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_plain_gqa_matches_ref_with_repeated_kv(dtype):
+    """GQA-native: query head h reads KV head h // G — the same as the
+    reference oracle over K/V repeated G times."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(3)
+    B, S, H, Hkv, D = 2, 77, 8, 2, 32
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    got = flash_attention(*(_both(x, jdt, tdt)[1] for x in (q, k, v)))
+    rep = lambda x: np.repeat(x, H // Hkv, axis=2)  # noqa: E731
+    fold = lambda x: jnp.asarray(  # noqa: E731
+        x.transpose(0, 2, 1, 3).reshape(B * H, S, D), jdt)
+    want = flash_attention_ref(fold(q), fold(rep(k)), fold(rep(v)))
+    want = want.reshape(B, H, S, D).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,hkv,d,pool,page,t",
+                         [(3, 4, 2, 32, 9, 4, 6),    # GQA, odd pool
+                          (2, 6, 6, 16, 5, 8, 4),    # MHA
+                          (1, 8, 2, 64, 12, 16, 8)])  # single row, big page
+def test_paged_plain_matches_ref(b, h, hkv, d, pool, page, t, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(b * pool + page)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((pool, page, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((pool, page, hkv, d)).astype(np.float32)
+    tables = np.stack([rng.choice(pool, t, replace=False)
+                       for _ in range(b)]).astype(np.int32)
+    pos = rng.integers(0, t * page, b).astype(np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, jdt, tdt) for x in (q, kp, vp))
+    got = paged_attention(tq, tk, tv, torch.from_numpy(tables),
+                          torch.from_numpy(pos))
+    want = paged_attention_ref(jq, jk, jv, jnp.asarray(tables),
+                               jnp.asarray(pos))
+    assert got.dtype == tdt and got.shape == (b, h, d)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_paged_plain_masks_stale_pages_bit_for_bit():
+    """Pages past a row's position may hold arbitrary stale garbage without
+    perturbing the output by a single bit."""
+    rng = np.random.default_rng(7)
+    b, h, hkv, d, pool, page, t = 2, 4, 2, 16, 10, 4, 5
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    kp = rng.standard_normal((pool, page, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((pool, page, hkv, d)).astype(np.float32)
+    tables = rng.permutation(pool).reshape(b, t).astype(np.int32)
+    pos = np.asarray([5, 9], np.int32)
+    args = (torch.from_numpy(tables), torch.from_numpy(pos))
+    base = paged_attention(q, torch.from_numpy(kp.copy()),
+                           torch.from_numpy(vp.copy()), *args)
+    for row in range(b):
+        for blk in range(pos[row] // page + 1, t):
+            kp[tables[row, blk]] = 1e4 * rng.standard_normal((page, hkv, d))
+            vp[tables[row, blk]] = 1e4
+    out = paged_attention(q, torch.from_numpy(kp), torch.from_numpy(vp),
+                          *args)
+    np.testing.assert_array_equal(base.numpy(), out.numpy())
+    want = paged_attention_ref(jnp.asarray(q.numpy()), jnp.asarray(kp),
+                               jnp.asarray(vp), jnp.asarray(tables),
+                               jnp.asarray(pos))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+
+
+def _paged_inputs(H=4, Hkv=2, D=8, P=6, T=3, B=2, page=4):
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    kp = torch.from_numpy(rng.normal(size=(P, page, Hkv, D)).astype(np.float32))
+    tables = torch.from_numpy(rng.integers(0, P, (B, T)).astype(np.int32))
+    pos = torch.tensor([3, 5], dtype=torch.int32)
+    return q, kp, kp.clone(), tables, pos
+
+
+def test_paged_wrapper_rejects_non_divisible_heads():
+    with pytest.raises(ValueError, match="not divisible"):
+        paged_attention(*_paged_inputs(H=5, Hkv=2))
+
+
+def test_paged_wrapper_rejects_non_int32_tables():
+    q, kp, vp, tables, pos = _paged_inputs()
+    for bad in (tables.float(), tables.long()):
+        with pytest.raises(ValueError, match="int32"):
+            paged_attention(q, kp, vp, bad, pos)
+
+
+def test_flash_wrapper_rejects_non_divisible_heads():
+    q = torch.zeros(1, 8, 5, 16)
+    kv = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="not divisible"):
+        flash_attention(q, kv, kv)
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    """CPU tensors take the plain versions: no kernel launch is counted."""
+    p0, f0 = paged_attention.launches, flash_attention.launches
+    paged_attention(*_paged_inputs())
+    x = torch.zeros(1, 8, 2, 16)
+    flash_attention(x, x, x)
+    assert (paged_attention.launches, flash_attention.launches) == (p0, f0)
+    assert p0 == f0 == 0
