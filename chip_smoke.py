@@ -6,15 +6,22 @@ H100).  Run from the repository root with no arguments:
 Phases (any failure exits non-zero before the last line):
   1. print the card's name and power limit, build every CUDA kernel from
      the sources in this checkout (one nvcc per source, in parallel);
-  2. hold each kernel against its plain PyTorch version at the serving
-     path's shapes, and time kernel, plain version and the PyTorch library
+  2. hold each kernel against its plain PyTorch version at the shapes its
+     path gives it, and time kernel, plain version and the PyTorch library
      call where one computes the same function;
   3. serve requests through the port's engine at gemma-7b's full width
      (28 layers, seeded random weights), counting kernel launches;
   4. hold the first decode step's logits computed with the kernels against
      the same step through the plain versions, on the card, and profile a
      few decode steps (host wall time against device time, top kernels);
-  5. print the `kernels` JSON line, then the result line.
+  5. stream the same gemma-7b through the ARAS layer-streaming executor
+     (3 arena slots, batch 4 x 512 tokens): one forward through the kernels
+     (delta_apply, pulse_count, flash_attention launches counted, device
+     time profiled), one more with every install's slot codes held against
+     the store's, and one with the install kernels swapped for their plain
+     versions — logits and per-install pulse counts must be identical;
+     then the crossbar int8 matmul path on that store's real codes;
+  6. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -35,6 +42,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+CORE_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores,
+                               # the bound taken for integer work on CUDA cores
+LAYER_CODES = 276_824_064      # quantized weights of one gemma-7b layer
+CROSSBAR_RTOL, CROSSBAR_ATOL = 1e-5, 1e-2   # tests/test_kernels.py:51-52
 KERNEL_TOL = 2e-2              # bf16 output: the reference's own tolerance
 # Logits after 28 bf16 layers: kernel and plain version round each layer's
 # attention output at different points (online vs two-pass softmax, f32 sums
@@ -66,9 +78,23 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def zero_launch_counts() -> None:
+    """Set the launch count of every kernel wrapper to 0: done just before
+    each path is driven, so each path's counts are its own."""
+    from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
+    from repro_torch.kernels.delta_apply.ops import apply_delta
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.pulse_count.ops import pulse_count
+    for wrapper in (paged_attention, flash_attention, apply_delta,
+                    pulse_count, crossbar_mvm):
+        wrapper.launches = 0
+
+
+def bound_ms(n_bytes: float, n_flops: float,
+             ops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = n_flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -151,6 +177,86 @@ def check_flash(torch, S, H, D, seed, Hkv=None):
     return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops)
 
 
+def _codes(torch, n, gen, dev):
+    return torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                         generator=gen)
+
+
+def check_delta_apply(torch, n, seed):
+    """Kernel vs plain, exactly: out of place, in place (as an install
+    writes its slot), and on views one byte off 16-byte alignment."""
+    from repro_torch.kernels.delta_apply.ops import apply_delta
+    from repro_torch.kernels.delta_apply.ref import delta_apply_plain
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    old, delta = _codes(torch, n, g, dev), _codes(torch, n, g, dev)
+    ref = delta_apply_plain(old, delta)
+    out = apply_delta(old, delta)
+    slot = old.clone()
+    apply_delta(slot, delta, out=slot)
+    off = apply_delta(old[1:], delta[1:])
+    torch.cuda.synchronize()
+    err = max((t.to(torch.int16) - r.to(torch.int16)).abs().max().item()
+              for t, r in ((out, ref), (slot, ref), (off, ref[1:])))
+    if err != 0:
+        raise AssertionError(f"delta_apply kernel disagrees at n={n}: max "
+                             f"abs err {err}")
+    ms = cuda_ms(lambda: apply_delta(slot, delta, out=slot), 20)
+    plain_ms = cuda_ms(lambda: delta_apply_plain(old, delta), 3)
+    lib_ms = cuda_ms(lambda: torch.add(old, delta, out=out), 20)  # wraps
+    return err, ms, plain_ms, lib_ms, bound_ms(3 * n, n, CORE_OPS_PER_S)
+
+
+def check_pulse_count(torch, n, seed):
+    """Kernel vs plain (pulses, unchanged cells), exactly, aligned and one
+    byte off alignment."""
+    from repro_torch.kernels.pulse_count.ops import pulse_count
+    from repro_torch.kernels.pulse_count.ref import pulse_count_plain
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    old, new = _codes(torch, n, g, dev), _codes(torch, n, g, dev)
+    new[: n // 3] = old[: n // 3]          # a third of the codes unchanged
+    err = 0
+    for a, b in ((old, new), (old[1:], new[1:])):
+        got = [int(t) for t in pulse_count(a, b)]
+        want = [int(t) for t in pulse_count_plain(a, b)]
+        err = max(err, max(abs(x - y) for x, y in zip(got, want)))
+    if err != 0:
+        raise AssertionError(f"pulse_count kernel disagrees at n={n}: "
+                             f"{got} vs plain {want}")
+    ms = cuda_ms(lambda: pulse_count(old, new), 20)
+    plain_ms = cuda_ms(lambda: pulse_count_plain(old, new), 3)
+    # 2 bytes read per code; per cell a |Δ| accumulate and an equality count
+    return err, got, ms, plain_ms, bound_ms(2 * n, 8 * n, CORE_OPS_PER_S)
+
+
+def check_crossbar(torch, x, w, zpx, zpw, scale):
+    """Kernel vs plain at the reference's rtol 1e-5, atol 1e-2; the
+    library yardstick is `torch._int_mm` on the -128-shifted operands
+    (the int8 product alone, no correction)."""
+    from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
+    from repro_torch.kernels.crossbar_mvm.ref import crossbar_mvm_plain
+    (M, K), N = x.shape, w.shape[1]
+    out = crossbar_mvm(x, w, zpx, zpw, scale)
+    ref = crossbar_mvm_plain(x, w, zpx, zpw, scale)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if not (torch.isfinite(out).all() and torch.allclose(
+            out, ref, rtol=CROSSBAR_RTOL, atol=CROSSBAR_ATOL)):
+        raise AssertionError(f"crossbar_mvm kernel disagrees at {(M, K, N)}: "
+                             f"max abs err {err}")
+    ms = cuda_ms(lambda: crossbar_mvm(x, w, zpx, zpw, scale), 5)
+    plain_ms = cuda_ms(lambda: crossbar_mvm_plain(x, w, zpx, zpw, scale), 2)
+    lib_ms = None
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        xs = (x.to(torch.int16) - 128).to(torch.int8)
+        ws = (w.to(torch.int16) - 128).to(torch.int8).t().contiguous().t()
+        lib_ms = cuda_ms(lambda: torch._int_mm(xs, ws), 5)
+    n_bytes = M * K + K * N + 4 * M * N
+    return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, 2 * M * N * K,
+                                               INT8_OPS_PER_S)
+
+
 # ------------------------------------------------------------ phase 3
 def serve(torch, cfg, params, requests, page):
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -167,7 +273,7 @@ def serve(torch, cfg, params, requests, page):
         eng.submit("gemma-7b", prompt, max_new_tokens=n_new, **sampling)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = flash_attention.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     summary = eng.run()
     torch.cuda.synchronize()
@@ -295,6 +401,209 @@ def profile_decode(torch, cfg, params, arena, steps=5):
             f"{e.count // steps:5d}x  {e.key[:90]}")
 
 
+# ------------------------------------------------------------ phase 5
+def measure_h2d(torch, n_bytes):
+    """Host-to-device copy rate from pinned memory (bytes/s) on a layer-
+    sized copy, and the time of a 4 KB copy (the per-copy latency)."""
+    src = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+    big = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    small = cuda_ms(lambda: dst[:4096].copy_(src[:4096], non_blocking=True),
+                    50)
+    return n_bytes / (big / 1e3), small / 1e3
+
+
+def _check_every_install(torch, ex):
+    """Wrap `ex.install` so each install is followed by a check that the
+    slot holds exactly the store's codes of the installed layer."""
+    install = ex.install
+
+    def checked(layer):
+        install(layer)
+        torch.cuda.synchronize()
+        codes = ex.slots[ex.layer_slot[layer]][1]
+        want = ex.store.layers[layer].codes.to(codes.device)
+        if not torch.equal(codes, want):
+            raise AssertionError(f"slot codes of layer {layer} differ from "
+                                 f"the store's after install "
+                                 f"{len(ex.install_log)}")
+    ex.install = checked
+
+
+def _device_busy_s(prof):
+    """Union of the device intervals the profiler traced (kernels and
+    copies on every stream), in seconds."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
+def streaming(torch, cfg, params, counters):
+    """The ARAS streaming path at full width: build the executor's store,
+    run the main path through the kernels (counted and profiled), then
+    again with every install checked, then with the install kernels
+    swapped for their plain versions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.delta_apply.ref import delta_apply_plain
+    from repro_torch.kernels.pulse_count.ref import pulse_count_plain
+    from repro_torch.streaming import delta as delta_mod
+    from repro_torch.streaming import executor as exec_mod
+    from repro_torch.streaming.plan import LinkModel
+    dma_bw, dma_lat = measure_h2d(torch, LAYER_CODES)
+    log(f"host-to-device from pinned memory: {dma_bw / 1e9:.2f} GB/s on a "
+        f"{LAYER_CODES / 1e6:.1f} MB copy; a 4 KB copy takes "
+        f"{dma_lat * 1e6:.2f} us")
+    B, S, slots = 4, 512, 3
+    t0 = time.perf_counter()
+    ex = exec_mod.StreamingExecutor(
+        params, cfg, arena_slots=slots, plan_tokens=B * S,
+        link=LinkModel(dma_bw=dma_bw, dma_latency_s=dma_lat), device="cuda")
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    n_codes = ex.store.layers[0].codes.numel()
+    log(f"store: {ex.n_layers} layers x {n_codes:,} codes quantized and "
+        f"re-encoded on the card in {t_store:.2f} s (center "
+        f"{ex.store.center}, offsets "
+        f"{[lw.offset for lw in ex.store.layers]})")
+    if n_codes != LAYER_CODES:
+        raise AssertionError(f"a layer holds {n_codes} codes, want "
+                             f"{LAYER_CODES}")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                       device="cuda")}
+
+    # the main path: counts set to 0 just before, read just after
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, m = ex.forward(batch)
+    launches = {name: c.launches for name, c in counters.items()}
+    installs = ex.install_log
+    n_delta = sum(r["kind"] == "delta" for r in installs)
+    want = {"delta_apply": n_delta, "pulse_count": len(installs),
+            "flash_attention": cfg.n_layers}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"streaming launches {launches}, want {want}")
+    if not (logits.shape == (B, S, cfg.vocab_padded)
+            and torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError("streaming logits not finite / wrong shape")
+    for r in installs:
+        log(f"  install L{r['layer']:<2d} {r['kind']:5s} slot {r['slot']} "
+            f"(was {r['resident']}): wire {r['wire_bytes']:,} B, skip "
+            f"{r['skip']:.4f}, cells {r['cells']:,}, pulses {r['pulses']:,}, "
+            f"host delta {r['host_s'] * 1e3:.1f} ms, accounting "
+            f"{r['account_s'] * 1e3:.1f} ms, copy {r['copy_s'] * 1e3:.2f} ms")
+    averages = prof.key_averages()
+    dev_events = [e for e in averages if e.device_type == DeviceType.CUDA]
+    copy_s = sum(e.device_time_total for e in dev_events
+                 if "HtoD" in e.key) / 1e6
+    kernel_s = sum(e.device_time_total for e in dev_events
+                   if "Memcpy" not in e.key and "Memset" not in e.key) / 1e6
+    busy = _device_busy_s(prof)
+    host_s = sum(r["host_s"] for r in installs)
+    account_s = sum(r["account_s"] for r in installs)
+    # one layer's compute (dequantize + block) alone on the compute stream,
+    # on a layer the arena still holds
+    from repro_torch.nn.model import _inputs_to_x
+    x0, _ = _inputs_to_x({"embedding": ex.embedding}, batch, cfg)
+    layer_ms = cuda_ms(lambda: ex._compute(ex.slots[0][0], x0), 3)
+    log(f"streaming forward B{B} S{S}, {slots} slots: {m['wall_s'] * 1e3:.1f} "
+        f"ms wall (profiled); {len(installs)} installs ({n_delta} delta), "
+        f"wire {m['wire_bytes'] / 1e6:.1f} MB vs raw "
+        f"{m['raw_bytes'] / 1e6:.1f} MB, mean skip {m['mean_skip']:.4f}, "
+        f"center {int(m['reuse_center'])}; plan overlap speedup "
+        f"{m['plan_overlap_speedup']:.4f} (makespan "
+        f"{m['plan_makespan_s'] * 1e3:.2f} ms vs serial "
+        f"{m['plan_serial_s'] * 1e3:.2f} ms)")
+    log(f"streaming time split: host delta {host_s * 1e3:.1f} ms, "
+        f"accounting waited for {account_s * 1e3:.1f} ms; device: H2D "
+        f"copies {copy_s * 1e3:.1f} ms, kernels {kernel_s * 1e3:.1f} ms "
+        f"(one layer's compute alone {layer_ms:.3f} ms, x {cfg.n_layers} = "
+        f"{layer_ms * cfg.n_layers:.1f} ms), busy {busy * 1e3:.1f} ms = "
+        f"{busy / m['wall_s']:.1%} of wall (idle {1 - busy / m['wall_s']:.1%})")
+    for e in sorted(dev_events, key=lambda e: -e.device_time_total)[:8]:
+        log(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
+            f"{e.key[:90]}")
+    log(f"launches in the streaming run: {json.dumps(launches)}")
+    flips = [(r["cells"], r["pulses"]) for r in installs]
+
+    # the same forward, every install's slot checked against the store
+    ex.reset()
+    _check_every_install(torch, ex)
+    t0 = time.perf_counter()
+    again, _ = ex.forward(batch)
+    log(f"streaming forward with every install checked: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if not torch.equal(again, logits):
+        raise AssertionError("streaming logits differ between two runs")
+
+    # plain versions of the install kernels (flash stays the kernel, held
+    # against its plain version in phases 2 and 4)
+    ex.reset()
+    plain = mock.patch.multiple(
+        exec_mod, apply_delta=lambda old, d, out: out.copy_(
+            delta_apply_plain(old, d)))
+    with plain, mock.patch.object(delta_mod, "pulse_count",
+                                  pulse_count_plain):
+        plain_logits, _ = ex.forward(batch)
+    plain_flips = [(r["cells"], r["pulses"]) for r in ex.install_log]
+    if plain_flips != flips:
+        raise AssertionError(f"pulse_count per install {flips} differ from "
+                             f"the plain version's {plain_flips}")
+    if not torch.equal(plain_logits, logits):
+        raise AssertionError("streaming logits through the plain install "
+                             "versions differ from the kernels'")
+    del ex.install
+    log(f"streaming kernels vs plain versions: logits identical, every "
+        f"slot equal to the store after each of {len(installs)} installs, "
+        f"pulses and unchanged cells identical on every install pair")
+    return ex, batch, logits, launches
+
+
+def crossbar_operands(torch, cfg, ex, batch):
+    """Layer 0's w_gate and w_up codes (3072 x 24576) from the streaming
+    store, and the batch's embeddings (2048 x 3072) quantized per tensor
+    as the store quantizes: {name: (w codes, zp_w, s_x * s_w)}."""
+    from repro_torch.nn.model import _inputs_to_x
+    from repro_torch.streaming.delta import _quantize
+    lw = ex.store.layers[0]
+    names = [p for p, f in zip(ex.paths[0], ex.flags[0]) if f]
+    x, _ = _inputs_to_x({"embedding": ex.embedding}, batch, cfg)
+    x_codes, s_x, zp_x = _quantize(x.reshape(-1, cfg.d_model).float())
+    mats = {path[1]: (lw.tensor(i).to("cuda"), lw.zero_points[i],
+                      np.float32(s_x * lw.scales[i]))
+            for i, path in enumerate(names)
+            if path in (("mlp", "w_gate"), ("mlp", "w_up"))}
+    return x_codes.view(-1, cfg.d_model), zp_x, mats
+
+
+def crossbar_path(torch, x_codes, zp_x, mats, counter):
+    """crossbar_mvm's own entry point: the int8 MLP input projections
+    (gate and up) of the quantized activations, counted."""
+    from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
+    zero_launch_counts()
+    outs = [crossbar_mvm(x_codes, w, zp_x, zp_w, sc)
+            for w, zp_w, sc in mats.values()]
+    torch.cuda.synchronize()
+    launches = counter.launches
+    if launches != len(mats) or not all(torch.isfinite(o).all()
+                                        for o in outs):
+        raise AssertionError(f"crossbar path: {launches} launches, or "
+                             "non-finite outputs")
+    log(f"crossbar path: activation codes {tuple(x_codes.shape)} x "
+        f"{len(mats)} weight code matrices {tuple(outs[0].shape)}: "
+        f"{launches} launches")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -345,6 +654,26 @@ def main() -> int:
         log(f"flash_attention S{S} H16 D256 causal: err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms), "
             f"bound {b:.4f} ms by {by}")
+    delta = {}
+    pulses = {}
+    for n in (LAYER_CODES, 70_001):
+        delta[n] = check_delta_apply(torch, n, seed=n % 997)
+        err, ms, plain_ms, lib_ms, (b, by) = delta[n]
+        log(f"delta_apply n {n:,}: err {err}, {ms:.4f} ms in place (plain "
+            f"{plain_ms:.4f} ms, torch.add on uint8 {lib_ms:.4f} ms), bound "
+            f"{b:.4f} ms by {by}")
+        pulses[n] = check_pulse_count(torch, n, seed=n % 991)
+        err, got, ms, plain_ms, (b, by) = pulses[n]
+        log(f"pulse_count n {n:,}: err {err} (pulses, unchanged {got}), "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms), bound {b:.4f} ms by "
+            f"{by}")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    err, ms, *_ = check_crossbar(
+        torch, torch.randint(0, 256, (70, 300), dtype=torch.uint8,
+                             device="cuda", generator=g),
+        torch.randint(0, 256, (300, 90), dtype=torch.uint8, device="cuda",
+                      generator=g), 131.25, 77.5, 3.1e-4)
+    log(f"crossbar_mvm M70 K300 N90 (ragged): err {err:.3g}")
 
     # phase 3: serve at gemma-7b's full width
     cfg = get_config("gemma-7b")
@@ -374,8 +703,36 @@ def main() -> int:
         raise AssertionError("first-step logits: kernels and plain versions "
                              "differ beyond the tolerance")
     profile_decode(torch, cfg, params, arena)
+    del arena
+    torch.cuda.empty_cache()
 
-    # phase 5: report
+    # phase 5: the ARAS streaming path, then the crossbar path on its codes
+    from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
+    from repro_torch.kernels.delta_apply.ops import apply_delta
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.pulse_count.ops import pulse_count
+    counters = {"delta_apply": apply_delta, "pulse_count": pulse_count,
+                "flash_attention": flash_attention}
+    ex, batch, s_logits, s_launches = streaming(torch, cfg, params, counters)
+    from repro_torch.nn.model import forward
+    resident, _ = forward(params, batch["tokens"], cfg, last_only=True)
+    r32 = resident[:, 0, :cfg.vocab].float()
+    s32 = s_logits[:, -1, :cfg.vocab].float()
+    log(f"streaming (int8 codes) vs resident bf16 weights, last position: "
+        f"max abs diff {(s32 - r32).abs().max().item():.4g} at a logit "
+        f"scale of {r32.abs().max().item():.4g}; greedy agreement "
+        f"{(s32.argmax(-1) == r32.argmax(-1)).float().mean().item():.3f}")
+    x_codes, zp_x, mats = crossbar_operands(torch, cfg, ex, batch)
+    w, zp_w, sc = mats["w_up"]
+    xb = check_crossbar(torch, x_codes, w, zp_x, zp_w, sc)
+    err, ms, plain_ms, lib_ms, (b, by) = xb
+    log(f"crossbar_mvm M{x_codes.shape[0]} K{w.shape[0]} N{w.shape[1]} "
+        f"(gemma-7b layer 0 w_up codes): err {err:.3g}, {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms), bound "
+        f"{b:.4f} ms by {by}")
+    x_launches = crossbar_path(torch, x_codes, zp_x, mats, crossbar_mvm)
+
+    # phase 6: report
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -392,6 +749,30 @@ def main() -> int:
          "ms": flash[512][1], "plain_ms": flash[512][2],
          "bound_ms": flash[512][4][0], "bound_by": flash[512][4][1],
          "library_ms": flash[512][3]},
+        {"name": "delta_apply", "route": "cuda",
+         "source": "src/repro_torch/kernels/delta_apply/csrc/delta_apply.cu",
+         "replaces": "src/repro/kernels/delta_apply/kernel.py:21",
+         "launches": s_launches["delta_apply"],
+         "max_abs_err": max(delta[n][0] for n in delta),
+         "ms": delta[LAYER_CODES][1], "plain_ms": delta[LAYER_CODES][2],
+         "bound_ms": delta[LAYER_CODES][4][0],
+         "bound_by": delta[LAYER_CODES][4][1],
+         "library_ms": delta[LAYER_CODES][3]},
+        {"name": "pulse_count", "route": "cuda",
+         "source": "src/repro_torch/kernels/pulse_count/csrc/pulse_count.cu",
+         "replaces": "src/repro/kernels/pulse_count/kernel.py:32",
+         "launches": s_launches["pulse_count"],
+         "max_abs_err": max(pulses[n][0] for n in pulses),
+         "ms": pulses[LAYER_CODES][2], "plain_ms": pulses[LAYER_CODES][3],
+         "bound_ms": pulses[LAYER_CODES][4][0],
+         "bound_by": pulses[LAYER_CODES][4][1], "library_ms": None},
+        {"name": "crossbar_mvm", "route": "cuda",
+         "source": "src/repro_torch/kernels/crossbar_mvm/csrc/"
+                   "crossbar_mvm.cu",
+         "replaces": "src/repro/kernels/crossbar_mvm/kernel.py:37",
+         "launches": x_launches, "max_abs_err": xb[0], "ms": xb[1],
+         "plain_ms": xb[2], "bound_ms": xb[4][0], "bound_by": xb[4][1],
+         "library_ms": xb[3]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -22,7 +22,8 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-NAMES = ("paged_attention", "flash_attention")
+NAMES = ("paged_attention", "flash_attention", "delta_apply", "pulse_count",
+         "crossbar_mvm")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

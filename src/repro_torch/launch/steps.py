@@ -33,7 +33,7 @@ def paged_serve_step(params, token, caches, pos, page_table,
 
 def fused_paged_serve_step(params, token, caches, pos, page_table,
                            temps: Sequence[float], top_ks: Sequence[int],
-                           keys: Sequence[int], steps: Sequence[int],
+                           keys: Sequence, steps: Sequence[int],
                            cfg: ModelConfig):
     """(`cached_fused_paged_serve_step`) paged decode step with sampling
     fused in: the logits stay on the device and only the (B,) int32 token
@@ -45,7 +45,7 @@ def fused_paged_serve_step(params, token, caches, pos, page_table,
 
 
 def sample_step(logits, vocab: int, temps: Sequence[float],
-                top_ks: Sequence[int], keys: Sequence[int],
+                top_ks: Sequence[int], keys: Sequence,
                 steps: Sequence[int]) -> torch.Tensor:
     """(`cached_sample_tokens`) batched sampler for the split path: one
     call per decode batch, never one host sync per row."""

@@ -75,16 +75,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 
 
 # --------------------------------------------------------------- forward
+def _inputs_to_x(params: Params, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, int]:
+    """The model's input stream from a batch dict: (x, prefix_len).  Only
+    the token input mode (`batch["tokens"]` (B, S)) is ported."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(f"{cfg.name}: input_mode "
+                                  f"{cfg.input_mode!r} is not ported yet")
+    return embed(params["embedding"], batch["tokens"], cfg), 0
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches=None, cache_pos=None, make_cache: bool = False,
             cache_len: int = 0, last_only: bool = False, page_table=None
             ) -> Tuple[torch.Tensor, Optional[Any]]:
     """tokens (B, S) -> (logits (B, S|1, vocab_padded), new_caches).
     ``last_only`` restricts the unembed to the final position."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode "
-                                  f"{cfg.input_mode!r} is not ported yet")
-    x = embed(params["embedding"], tokens, cfg)
+    x, _ = _inputs_to_x(params, {"tokens": tokens}, cfg)
     x, new_caches = apply_stack(
         params["stack"], x, cfg, caches=caches, cache_pos=cache_pos,
         make_cache=make_cache, cache_len=cache_len, page_table=page_table)

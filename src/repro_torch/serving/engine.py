@@ -225,7 +225,7 @@ class ServingEngine:
         n_rows = len(arena.owner)
         temps = np.zeros(n_rows, np.float32)
         tks = np.zeros(n_rows, np.int32)
-        keys = np.zeros(n_rows, np.int64)
+        keys = np.zeros((n_rows, 2), np.int64)
         steps = np.zeros(n_rows, np.int32)
         for slot in arena.active_slots():
             req = self.requests[arena.owner_of(slot)]

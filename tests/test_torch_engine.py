@@ -1,10 +1,10 @@
 """The port's serving engine against the reference engine on the schedule
 of `tests/test_kernel_backend.py::_run_engine` (paged, prefix cache on,
-COW > 0, preemption > 0) with its one sampled request set to greedy: the
-port must give identical tokens and identical COW / preemption counts to
-the reference with `kernel_backend="xla"`, fused and split, over bf16 and
-int8 pools.  Sampled requests follow torch's generator (not jax's
-threefry), so for them the port is held to its own determinism."""
+COW > 0, preemption > 0, one temperature/top-k sampled request): the port
+must give identical tokens and identical COW / preemption counts to the
+reference with `kernel_backend="xla"`, fused and split, over bf16 and
+int8 pools.  The sampled request draws from jax's threefry stream in both
+packages, so its tokens are held to the reference's too."""
 import dataclasses as dc
 
 import jax
@@ -66,10 +66,10 @@ def _run_ref(kv):
                         kv_layout="paged", page_size=PAGE, n_pages=10,
                         prefix_cache=True, kernel_backend="xla")],
         sched=RefSchedulerConfig(max_prefill_per_step=2))
-    return _schedule(eng, cfg.vocab, sampled=False)
+    return _schedule(eng, cfg.vocab, sampled=True)
 
 
-def _run_port(fuse, kv, sampled=False):
+def _run_port(fuse, kv, sampled=True):
     cfg = dc.replace(CFG, kv_cache_dtype=kv)
     eng = ServingEngine(
         [EngineModel("a", PARAMS, cfg, kv_slots=3, max_seq=24,

@@ -2,19 +2,27 @@
 versions, held against the reference's jnp oracles (`ref.py`) on the same
 numpy inputs, at the shapes and tolerances of `tests/test_kernels.py`:
 3e-4 in f32, 2e-2 in bf16 (one bf16 ulp near 1 is 2**-7 ≈ 8e-3; the two
-frameworks round the final cast and sum in different orders).  The CUDA
-kernels themselves are held against the same plain versions on the card
-by `chip_smoke.py`."""
+frameworks round the final cast and sum in different orders); delta_apply
+and pulse_count are integer functions and must match exactly; crossbar_mvm
+is held to the reference's rtol 1e-5, atol 1e-2.  The CUDA kernels
+themselves are held against the same plain versions on the card by
+`chip_smoke.py`."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.crossbar_mvm.ref import crossbar_mvm_ref
+from repro.kernels.delta_apply.ref import delta_apply_ref
 from repro.kernels.flash_attention.ref import flash_attention_ref as _flash_ref
 from repro.kernels.paged_attention.ref import paged_attention_ref
+from repro.kernels.pulse_count.ref import pulse_count_ref
+from repro_torch.kernels.crossbar_mvm.ops import MAX_K, crossbar_mvm
+from repro_torch.kernels.delta_apply.ops import apply_delta
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.pulse_count.ops import pulse_count
 
 flash_attention_ref = jax.jit(_flash_ref, static_argnames="causal")
 paged_attention_ref = jax.jit(paged_attention_ref)
@@ -157,3 +165,74 @@ def test_launch_counters_stay_zero_on_cpu():
     flash_attention(x, x, x)
     assert (paged_attention.launches, flash_attention.launches) == (p0, f0)
     assert p0 == f0 == 0
+
+
+# ------------------------------------------- the ARAS install kernels
+@pytest.mark.parametrize("n", [17, 4096, 70_001])
+def test_delta_apply_plain_matches_ref(n):
+    rng = np.random.default_rng(n)
+    old = rng.integers(0, 256, n, dtype=np.uint8)
+    new = rng.integers(0, 256, n, dtype=np.uint8)
+    delta = ((new.astype(np.int32) - old.astype(np.int32)) % 256
+             ).astype(np.uint8)
+    got = apply_delta(torch.from_numpy(old), torch.from_numpy(delta))
+    want = np.asarray(delta_apply_ref(jnp.asarray(old), jnp.asarray(delta)))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), new)
+    # in place into the old codes, as an install writes its slot
+    slot = torch.from_numpy(old.copy())
+    assert apply_delta(slot, torch.from_numpy(delta), out=slot) is slot
+    np.testing.assert_array_equal(slot.numpy(), new)
+
+
+@pytest.mark.parametrize("n", [100, 33_000])
+def test_pulse_count_plain_matches_ref(n):
+    rng = np.random.default_rng(n)
+    old = rng.integers(0, 256, n, dtype=np.uint8)
+    new = rng.integers(0, 256, n, dtype=np.uint8)
+    p, s = pulse_count(torch.from_numpy(old), torch.from_numpy(new))
+    pr, sr = pulse_count_ref(jnp.asarray(old), jnp.asarray(new))
+    assert p.dtype == s.dtype == torch.int64
+    assert (int(p), int(s)) == (int(pr), int(sr))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 64, 8), (70, 300, 90), (128, 128, 128),
+                                   (200, 1000, 64)])
+def test_crossbar_mvm_plain_matches_ref(m, k, n):
+    rng = np.random.default_rng(m * k + n)
+    x = rng.integers(0, 256, (m, k), dtype=np.uint8)
+    w = rng.integers(0, 256, (k, n), dtype=np.uint8)
+    zx = np.float32(rng.uniform(0, 255))
+    zw = np.float32(rng.uniform(0, 255))
+    sc = np.float32(10 ** rng.uniform(-5, -2))
+    got = crossbar_mvm(torch.from_numpy(x), torch.from_numpy(w), zx, zw, sc)
+    want = crossbar_mvm_ref(jnp.asarray(x), jnp.asarray(w), jnp.float32(zx),
+                            jnp.float32(zw), jnp.float32(sc))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-2)
+
+
+def test_install_kernel_wrappers_reject_bad_inputs():
+    u8 = torch.zeros(8, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="uint8"):
+        apply_delta(u8, u8.to(torch.int32))
+    with pytest.raises(ValueError, match="one shape"):
+        pulse_count(u8, torch.zeros(9, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="overflow"):
+        crossbar_mvm(torch.zeros(1, MAX_K + 1, dtype=torch.uint8),
+                     torch.zeros(MAX_K + 1, 1, dtype=torch.uint8), 0., 0., 1.)
+    with pytest.raises(ValueError, match=r"\(M, K\)"):
+        crossbar_mvm(torch.zeros(2, 3, dtype=torch.uint8),
+                     torch.zeros(4, 2, dtype=torch.uint8), 0., 0., 1.)
+
+
+def test_install_kernel_launch_counters_stay_zero_on_cpu():
+    """CPU tensors take the plain versions: no kernel launch is counted."""
+    a = torch.arange(64, dtype=torch.uint8)
+    apply_delta(a, a)
+    pulse_count(a, a)
+    crossbar_mvm(a.view(8, 8), a.view(8, 8), 1., 2., 0.5)
+    assert apply_delta.launches == pulse_count.launches == \
+        crossbar_mvm.launches == 0
