@@ -11,8 +11,9 @@
 // per input and one vector store (the four 32-bit words add bytewise,
 // carries kept out of the neighbouring byte), in a grid-stride loop over
 // the vector part; the n % 16 tail bytes go one per thread of block 0.
-// Unaligned pointers take a byte-at-a-time loop.  `out` may be `old`: the
-// update is elementwise, so the install writes the slot in place.
+// The pointers must be 16-byte aligned (the wrapper checks).  `out` may be
+// `old` or `delta`: the update is elementwise, so an install turns the
+// delta it received into the new codes in place.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,39 +47,22 @@ __global__ void delta_apply_vec(const uint4* old,
   }
 }
 
-__global__ void delta_apply_bytes(const uint8_t* old, const uint8_t* delta,
-                                  uint8_t* out, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = (uint8_t)(old[i] + delta[i]);
-  }
-}
-
 }  // namespace
 
 extern "C" int delta_apply_u8(const void* old, const void* delta, void* out,
-                              long long n, int aligned, int n_sms,
-                              void* stream) {
+                              long long n, int n_sms, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
-  const long long max_blocks = (long long)n_sms * 8;
+  const long long n_vec = n / 16;
+  long long blocks = (n_vec + threads - 1) / threads;
+  if (blocks > (long long)n_sms * 8) blocks = (long long)n_sms * 8;
+  if (blocks < 1) blocks = 1;
   const uint8_t* o = static_cast<const uint8_t*>(old);
   const uint8_t* d = static_cast<const uint8_t*>(delta);
   uint8_t* r = static_cast<uint8_t*>(out);
-  if (aligned) {
-    const long long n_vec = n / 16;
-    long long blocks = (n_vec + threads - 1) / threads;
-    if (blocks > max_blocks) blocks = max_blocks;
-    if (blocks < 1) blocks = 1;
-    delta_apply_vec<<<(unsigned)blocks, threads, 0, s>>>(
-        reinterpret_cast<const uint4*>(o), reinterpret_cast<const uint4*>(d),
-        reinterpret_cast<uint4*>(r), n_vec, o, d, r, n);
-  } else {
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > max_blocks) blocks = max_blocks;
-    delta_apply_bytes<<<(unsigned)blocks, threads, 0, s>>>(o, d, r, n);
-  }
+  delta_apply_vec<<<(unsigned)blocks, threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint4*>(o), reinterpret_cast<const uint4*>(d),
+      reinterpret_cast<uint4*>(r), n_vec, o, d, r, n);
   return static_cast<int>(cudaGetLastError());
 }

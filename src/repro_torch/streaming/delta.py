@@ -21,7 +21,7 @@ ratios equal the reference's bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +94,19 @@ def delta_bytes(old: torch.Tensor, new: torch.Tensor) -> Tuple[int, float]:
     payload = int(np.ceil(n * entropy_bits / 8.0)) + 16
     skip = float(counts[3] / n)  # Δ == 0
     return payload, skip
+
+
+def wire_cost(old: Optional[torch.Tensor], new: torch.Tensor
+              ) -> Tuple[int, float]:
+    """(bytes-on-wire, skip ratio) to put `new` codes into a region holding
+    `old` (None = cold region → full stream): the cell-delta stream over
+    the overlap, the rest of `new` shipped raw."""
+    size = new.numel()
+    n = 0 if old is None else min(old.numel(), size)
+    if n == 0:
+        return size, 0.0
+    b, skip = delta_bytes(old.reshape(-1)[:n], new.reshape(-1)[:n])
+    return b + (size - n), skip
 
 
 @dataclasses.dataclass
@@ -228,33 +241,17 @@ class QuantizedStore:
         for lw, c in zip(self.layers, dev_codes):
             host = torch.empty(c.shape, dtype=torch.uint8, pin_memory=pin)
             lw.codes = host.copy_(c)
-        self._pair_cache: Dict[Tuple[Optional[int], int], Tuple] = {}
 
-    def _pair(self, resident: Optional[int], incoming: int
-              ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-        """The two layers' codes on the store's device (the last pair is
-        kept: an install's wire cost and its flips read the same pair)."""
-        key = (resident, incoming)
-        if key not in self._pair_cache:
-            on = lambda i: self.layers[i].codes.to(  # noqa: E731
-                self.device, non_blocking=True)
-            self._pair_cache = {key: (None if resident is None
-                                      else on(resident), on(incoming))}
-        return self._pair_cache[key]
+    def _on_device(self, layer: Optional[int]) -> Optional[torch.Tensor]:
+        return None if layer is None else self.layers[layer].codes.to(
+            self.device)
 
     def install_cost(self, resident: Optional[int], incoming: int
                      ) -> Tuple[int, float]:
         """(bytes-on-wire, skip ratio) to put layer `incoming` into a slot
         currently holding `resident` (None = cold slot → full stream)."""
-        size = self.layers[incoming].codes.numel()
-        if resident is None:
-            return size, 0.0
-        n = min(self.layers[resident].codes.numel(), size)
-        if n == 0:
-            return size, 0.0
-        old, new = self._pair(resident, incoming)
-        b, skip = delta_bytes(old[:n], new[:n])
-        return b + (size - n), skip
+        return wire_cost(self._on_device(resident),
+                         self._on_device(incoming))
 
     def install_flips(self, resident: Optional[int], incoming: int, *,
                       skip_equal: bool = True) -> Tuple[int, int]:
@@ -266,5 +263,5 @@ class QuantizedStore:
         skip_equal programmer still read-verifies and skips equal 2-bit
         planes.  skip_equal=False models the no-reuse baseline that
         rewrites every cell."""
-        old, new = self._pair(resident, incoming)
-        return flip_counts(old, new, skip_equal=skip_equal)
+        return flip_counts(self._on_device(resident),
+                           self._on_device(incoming), skip_equal=skip_equal)

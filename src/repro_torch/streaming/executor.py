@@ -9,15 +9,18 @@ Mechanics:
     scales, biases) stay in their dtype and permanently device-resident;
   * a slot's occupant is updated by shipping ``delta = (new − old) mod 256``
     — one byte per weight — computed on the host into a pinned staging
-    buffer, copied to the device and added to the slot's codes in place by
-    the `delta_apply` kernel; the *accounted* wire bytes use the 2-bit-cell
-    delta stream (`delta.delta_bytes`), and each install's programming
-    pulses come from the `pulse_count` kernel (`install_log`);
-  * installs are issued ahead of use: on a CUDA device the copy and the
-    delta apply run on a copy stream, after the slot's previous occupant
-    was computed, and each install records an event that its layer's
-    compute waits on — so compute of layer i runs while layer i+1
-    transfers, the double-buffering the static `StreamPlan` prescribes;
+    buffer, copied into a new device buffer and turned into the new codes
+    there by the `delta_apply` kernel (the slot's old codes stay readable
+    until the layer that used them was computed); the *accounted* wire
+    bytes use the 2-bit-cell delta stream (`delta.wire_cost`), and each
+    install's programming pulses come from the `pulse_count` kernel
+    (`install_log`), both counted on the old and new codes the device
+    already holds;
+  * installs are issued ahead of use: on a CUDA device the copy, the delta
+    apply and the accounting run on a copy stream, and each install
+    records an event that its layer's compute waits on — so compute of
+    layer i runs while layer i+1 transfers, the double-buffering the
+    static `StreamPlan` prescribes;
   * every compute dequantizes the code vector (Eq. 7 zero-point
     compensation folded in) and applies the block.
 
@@ -40,7 +43,7 @@ from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import rmsnorm, unembed
 from repro_torch.nn.model import _inputs_to_x
 from repro_torch.nn.transformer import apply_block, stack_plan
-from repro_torch.streaming.delta import QuantizedStore
+from repro_torch.streaming.delta import QuantizedStore, flip_counts, wire_cost
 from repro_torch.streaming.plan import (InstallCostModel, LinkModel,
                                         StreamLayer, StreamPlan,
                                         build_stream_plan)
@@ -134,15 +137,13 @@ class StreamingExecutor:
             link=link, slot_bytes=slot_bytes, replication=False,
             cost_model=self.cost_model)
 
-        # the copy path: a pinned host staging buffer for deltas, a device
-        # buffer they land in, and a copy stream (CUDA only)
+        # the copy path: a pinned host staging buffer for deltas and a copy
+        # stream (CUDA only)
         self._cuda = dev.type == "cuda"
         if self._cuda:
             self._copy_stream = torch.cuda.Stream(dev)
             self._staging = torch.empty(slot_bytes, dtype=torch.uint8,
                                         pin_memory=True)
-            self._landing = torch.empty(slot_bytes, dtype=torch.uint8,
-                                        device=dev)
             self._staged = None      # event: the last copy out of staging
         self.reset()
 
@@ -160,7 +161,6 @@ class StreamingExecutor:
         #: for on the host) and of the host-to-device copy
         self.install_log: List[Dict[str, Any]] = []
         self._ready: Dict[int, Any] = {}      # layer -> install-done event
-        self._slot_free: Dict[int, Any] = {}  # slot -> occupant-computed event
 
     # ------------------------------------------------------------ install
     def _side(self):
@@ -203,29 +203,24 @@ class StreamingExecutor:
                 copy_start = torch.cuda.Event(enable_timing=True)
                 copy_end = torch.cuda.Event(enable_timing=True)
                 copy_start.record()
-            if cold:          # into a new buffer: the old one may be read
-                codes_dev = new_codes.to(self.device, non_blocking=True,
-                                         copy=True)
-            elif self._cuda:
-                delta = self._landing[:n].copy_(delta, non_blocking=True)
+            # into a new buffer: the slot's codes may still be read
+            buf = (new_codes if cold else delta).to(
+                self.device, non_blocking=True, copy=True)
             if self._cuda:
                 copy_end.record()
                 self._staged = copy_end
-                if cold:      # allocated on the copy stream, read by compute
-                    codes_dev.record_stream(compute)
-                elif s in self._slot_free:
-                    # the slot's occupant must be computed before it changes
-                    self._copy_stream.wait_event(self._slot_free[s])
-            if not cold:
-                apply_delta(codes_dev, delta, out=codes_dev)
+                buf.record_stream(compute)  # made here, read by compute
+            if not cold:      # the delta becomes the new codes in place
+                apply_delta(codes_dev, buf, out=buf)
             if self._cuda:
                 self._ready[layer] = torch.cuda.Event()
                 self._ready[layer].record()
             t_copy = time.perf_counter() - t1
             t2 = time.perf_counter()
-            # accounting, on the copy stream: it never waits for compute
-            wire, skip = self.store.install_cost(occ, layer)
-            cells, pulses = self.store.install_flips(occ, layer)
+            # accounting on the codes the device holds, on the copy stream:
+            # it never waits for compute
+            wire, skip = wire_cost(codes_dev, buf)
+            cells, pulses = flip_counts(codes_dev, buf)
             t_account = time.perf_counter() - t2
         # (the reference drops the evicted occupant on a delta install only,
         # leaving it mapped to a slot a cold install of another size took)
@@ -235,7 +230,7 @@ class StreamingExecutor:
         self.stats.installs += 1
         self.stats.skips += skip
         self.stats.modeled_s += self.cost_model.install_s(wire)
-        self.slots[s] = (layer, codes_dev)
+        self.slots[s] = (layer, buf)
         self.layer_slot[layer] = s
         self.install_log.append({
             "kind": "cold" if cold else "delta", "layer": layer,
@@ -268,10 +263,6 @@ class StreamingExecutor:
                 self._ready[layer])
         bp = self._block_params(layer, self.slots[s][1])
         y, _ = apply_block(bp, x, self.cfg, layer)
-        if self._cuda:
-            free = torch.cuda.Event()
-            free.record()
-            self._slot_free[s] = free
         return y.to(torch.bfloat16)    # each layer's output is a bf16 array
 
     def forward(self, batch: Dict[str, Any], prefetch: int = 1
