@@ -5,15 +5,22 @@ H100).  Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero before the last line):
   1. print the card's name and power limit, build every CUDA kernel from
-     the sources in this checkout (one nvcc per source, in parallel);
+     the sources in this checkout (one nvcc per source, in parallel), and
+     count the tensor-core instructions (wgmma HGMMA/IGMMA, mma.sync
+     HMMA/IMMA) in each library's SASS: crossbar_mvm and flash_attention
+     must have some;
   2. hold each kernel against its plain PyTorch version at the shapes its
-     path gives it, and time kernel, plain version and the PyTorch library
+     path gives it and at the shapes its design finds hard (flash: every
+     head dim, GQA, ragged, causal and full, S 512 and 1000, the streaming
+     B 4 x S 512; crossbar: ragged tiles, a K that is not a multiple of
+     16 at M < 64), and time kernel, plain version and the PyTorch library
      call where one computes the same function;
   3. serve requests through the port's engine at gemma-7b's full width
      (28 layers, seeded random weights), counting kernel launches;
   4. hold the first decode step's logits computed with the kernels against
      the same step through the plain versions, on the card, and profile a
-     few decode steps (host wall time against device time, top kernels);
+     few decode steps and the longest prompt's prefill step (host wall
+     time against device time, top kernels);
   5. stream the same gemma-7b through the ARAS layer-streaming executor
      (3 arena slots, batch 4 x 512 tokens): one forward through the kernels
      (delta_apply, pulse_count, flash_attention launches counted, device
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +63,8 @@ KERNEL_TOL = 2e-2              # bf16 output: the reference's own tolerance
 # logit bounds that noise while a wrong kernel (a missed page, a wrong
 # mask) moves logits by their own scale.
 LOGIT_TOL = 0.05
+SLEEP_CYCLES = 100_000_000     # ~50 ms of device sleep at the H100's clocks
+REPEATS = 20                   # runs of a pipelined kernel held bit-identical
 
 
 def log(msg: str) -> None:
@@ -63,12 +73,15 @@ def log(msg: str) -> None:
 
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of `fn` in ms over `iters` calls after a warm-up,
-    by CUDA events around the whole run."""
+    by CUDA events around the whole run.  The calls are queued behind a
+    device-side sleep, so a kernel shorter than its host launch path is
+    timed on the card and not at the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -95,6 +108,26 @@ def bound_ms(n_bytes: float, n_flops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+TENSOR_CORE_SASS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
+
+
+def tensor_core_counts(build):
+    """Tensor-core instructions in each built library, by SASS opcode
+    (`cuobjdump -sass`): HGMMA/IGMMA are wgmma, HMMA/IMMA mma.sync."""
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "",
+                                                     "bin", "cuobjdump")
+    counts = {}
+    for name in build.NAMES:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", sass))
+                        for op in TENSOR_CORE_SASS}
+    return counts
 
 
 # ------------------------------------------------------------ phase 2
@@ -149,30 +182,45 @@ def check_paged(torch, B, H, Hkv, D, page, T, seed):
     return err, ms, plain_ms, sdpa_ms, bound_ms(n_bytes, n_flops)
 
 
-def check_flash(torch, S, H, D, seed, Hkv=None):
+def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
+                timed=True):
+    """Kernel vs plain within KERNEL_TOL; when `timed`, also the kernel's
+    output identical over REPEATS runs, and the kernel's, the plain
+    version's and SDPA's times and the bound."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     Hkv = Hkv or H
-    q = torch.randn(1, S, H, D, generator=g, device=dev).bfloat16()
-    k, v = (torch.randn(1, S, Hkv, D, generator=g, device=dev).bfloat16()
+    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
             for _ in range(2))
-    out = flash_attention(q, k, v, causal=True)
-    ref = flash_attention_plain(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     if not (err <= KERNEL_TOL and torch.isfinite(out).all()):
-        raise AssertionError(f"flash_attention kernel disagrees at S={S}: "
+        raise AssertionError(f"flash_attention kernel disagrees at B={B} "
+                             f"S={S} H={H} Hkv={Hkv} D={D} causal={causal}: "
                              f"max abs err {err} > {KERNEL_TOL}")
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), 5)
+    if not timed:
+        return err, None, None, None, (None, None)
+    # the kernel's stages pass between two warpgroups through mbarriers: a
+    # race there would show as runs that differ
+    if not all(torch.equal(flash_attention(q, k, v, causal=causal), out)
+               for _ in range(REPEATS)):
+        raise AssertionError(f"flash_attention output changes between runs "
+                             f"at B={B} S={S} D={D}")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                       5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=H != Hkv), 20)
-    n_bytes = 2 * S * (H + Hkv) * D * 2
-    n_flops = 2 * D * H * S * (S + 1)
+        qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv), 20)
+    n_bytes = 2 * B * S * (H + Hkv) * D * 2
+    pairs = S * (S + 1) // 2 if causal else S * S
+    n_flops = 4 * B * D * H * pairs
     return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops)
 
 
@@ -263,6 +311,22 @@ def check_crossbar(torch, x, w, zpx, zpw, scale):
     n_bytes = M * K + K * N + 4 * M * N
     return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, 2 * M * N * K,
                                                INT8_OPS_PER_S)
+
+
+def kernel_split(torch, fn, calls=3):
+    """Device time per call of each kernel `fn` launches, by the profiler:
+    [(ms, kernel name)], largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((e.device_time_total / 1e3 / calls, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
 
 
 # ------------------------------------------------------------ phase 3
@@ -367,18 +431,12 @@ def first_step_logits(torch, cfg, params, requests, page):
     return pre_err, dec_err, scale, agree, arena
 
 
-def profile_decode(torch, cfg, params, arena, steps=5):
-    """Where a decode step's time goes: host wall time per step (ending in
-    a synchronize) against the device time the profiler attributes to
+def profile_step(torch, step, steps, label, bound_ms_):
+    """Where one step's time goes: host wall time per step (ending in a
+    synchronize) against the device time the profiler attributes to
     kernels, and the kernels that take it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.steps import paged_serve_step
-    tok, pos, tables = arena.decode_inputs()
-
-    def step():
-        paged_serve_step(params, tok, arena.caches, pos, tables, cfg)
-
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -399,14 +457,33 @@ def profile_decode(torch, cfg, params, arena, steps=5):
     n_ops = sum(e.count for e in averages
                 if e.device_type == DeviceType.CPU
                 and e.key.startswith("aten::")) // steps
-    log(f"decode step (8 rows, {cfg.n_layers} layers): {wall_ms:.2f} ms "
-        f"wall, {device_ms:.2f} ms device ({device_ms / wall_ms:.1%} busy), "
+    log(f"{label}: {wall_ms:.2f} ms wall, {device_ms:.2f} ms device "
+        f"({device_ms / wall_ms:.1%} busy), "
         f"{sum(e.count for e in kernels) // steps} kernels and {n_ops} aten "
-        f"calls per step; weight-read bound "
-        f"{cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms")
+        f"calls per step; weight-read bound {bound_ms_:.2f} ms")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         log(f"  {e.device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{e.count // steps:5d}x  {e.key[:90]}")
+
+
+def profile_decode(torch, cfg, params, arena, steps=5):
+    """A batched decode step of the arena's 8 rows."""
+    from repro_torch.launch.steps import paged_serve_step
+    tok, pos, tables = arena.decode_inputs()
+    profile_step(torch, lambda: paged_serve_step(params, tok, arena.caches,
+                                                 pos, tables, cfg), steps,
+                 f"decode step (8 rows, {cfg.n_layers} layers)",
+                 cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3)
+
+
+def profile_prefill(torch, cfg, params, prompt, steps=3):
+    """The prefill step of one prompt, as the engine runs it."""
+    from repro_torch.launch.steps import prefill_step
+    tokens = torch.tensor([prompt], device="cuda")
+    profile_step(torch, lambda: prefill_step(params, tokens, cfg,
+                                             len(prompt)), steps,
+                 f"prefill step (1 x {len(prompt)} tokens, {cfg.n_layers} "
+                 f"layers)", cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3)
 
 
 # ------------------------------------------------------------ phase 5
@@ -642,6 +719,12 @@ def main() -> int:
         for line in build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+    sass = tensor_core_counts(build)
+    log(f"tensor-core instructions in each library (SASS): {json.dumps(sass)}")
+    for name in ("crossbar_mvm", "flash_attention"):
+        if not any(sass[name].values()):
+            raise AssertionError(f"{name}: no tensor-core instruction in its "
+                                 f"library")
 
     # phase 2: kernels against their plain versions
     p_err, p_ms, p_plain, p_sdpa, (p_bound, p_by) = check_paged(
@@ -654,18 +737,25 @@ def main() -> int:
     log(f"paged_attention B8 Hkv4 G4 D128 page16 T64: err {g_err:.3g}, "
         f"{g_ms:.4f} ms (plain {g_plain:.4f} ms, sdpa over pre-gathered K/V "
         f"{g_sdpa:.4f} ms), bound {g_bound:.4f} ms by {g_by}")
-    err = check_flash(torch, S=77, H=8, D=64, seed=3, Hkv=2)[0]
+    err = check_flash(torch, S=77, H=8, D=64, seed=3, Hkv=2, timed=False)[0]
     log(f"flash_attention S77 H8 Hkv2 D64 causal (GQA, ragged): err "
         f"{err:.3g}")
     err = check_paged(torch, B=3, H=4, Hkv=2, D=32, page=4, T=6, seed=4)[0]
     log(f"paged_attention B3 Hkv2 G2 D32 page4 T6: err {err:.3g}")
+    for D in (32, 64, 128, 256):   # every head dim the kernel takes
+        for causal in (True, False):
+            err = check_flash(torch, S=200, H=4, D=D, seed=D + causal,
+                              Hkv=2, B=2, causal=causal, timed=False)[0]
+            log(f"flash_attention B2 S200 H4 Hkv2 D{D} "
+                f"{'causal' if causal else 'full'} (GQA, ragged): err "
+                f"{err:.3g}")
     flash = {}
-    for S in (512, 1000):
-        flash[S] = check_flash(torch, S=S, H=16, D=256, seed=S)
-        err, ms, plain_ms, lib_ms, (b, by) = flash[S]
-        log(f"flash_attention S{S} H16 D256 causal: err {err:.3g}, "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms), "
-            f"bound {b:.4f} ms by {by}")
+    for B, S in ((1, 512), (1, 1000), (4, 512)):
+        flash[B, S] = check_flash(torch, S=S, H=16, D=256, seed=S + B, B=B)
+        err, ms, plain_ms, lib_ms, (b, by) = flash[B, S]
+        log(f"flash_attention B{B} S{S} H16 D256 causal: err {err:.3g}, "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            f"kernel/sdpa {ms / lib_ms:.2f}), bound {b:.4f} ms by {by}")
     delta = {}
     pulses = {}
     for n in (LAYER_CODES, 70_001):
@@ -680,12 +770,13 @@ def main() -> int:
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms), bound {b:.4f} ms by "
             f"{by}")
     g = torch.Generator(device="cuda").manual_seed(5)
-    err, ms, *_ = check_crossbar(
-        torch, torch.randint(0, 256, (70, 300), dtype=torch.uint8,
-                             device="cuda", generator=g),
-        torch.randint(0, 256, (300, 90), dtype=torch.uint8, device="cuda",
-                      generator=g), 131.25, 77.5, 3.1e-4)
-    log(f"crossbar_mvm M70 K300 N90 (ragged): err {err:.3g}")
+    for M, K, N in ((70, 300, 90), (8, 3071, 200)):   # ragged tiles and K
+        err, ms, *_ = check_crossbar(
+            torch, torch.randint(0, 256, (M, K), dtype=torch.uint8,
+                                 device="cuda", generator=g),
+            torch.randint(0, 256, (K, N), dtype=torch.uint8, device="cuda",
+                          generator=g), 131.25, 77.5, 3.1e-4)
+        log(f"crossbar_mvm M{M} K{K} N{N} (ragged): err {err:.3g}")
 
     # phase 3: serve at gemma-7b's full width
     cfg = get_config("gemma-7b")
@@ -715,6 +806,8 @@ def main() -> int:
         raise AssertionError("first-step logits: kernels and plain versions "
                              "differ beyond the tolerance")
     profile_decode(torch, cfg, params, arena)
+    profile_prefill(torch, cfg, params, max((p for p, _, _ in requests),
+                                            key=len))
     del arena
     torch.cuda.empty_cache()
 
@@ -740,8 +833,11 @@ def main() -> int:
     err, ms, plain_ms, lib_ms, (b, by) = xb
     log(f"crossbar_mvm M{x_codes.shape[0]} K{w.shape[0]} N{w.shape[1]} "
         f"(gemma-7b layer 0 w_up codes): err {err:.3g}, {ms:.4f} ms (plain "
-        f"{plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms), bound "
-        f"{b:.4f} ms by {by}")
+        f"{plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, kernel/_int_mm "
+        f"{ms / lib_ms:.2f}), bound {b:.4f} ms by {by}")
+    for t, name in kernel_split(torch, lambda: crossbar_mvm(x_codes, w, zp_x,
+                                                            zp_w, sc)):
+        log(f"  crossbar_mvm call: {t:.4f} ms  {name[:80]}")
     x_launches = crossbar_path(torch, x_codes, zp_x, mats, crossbar_mvm)
 
     # phase 6: report
@@ -757,10 +853,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
-         "launches": launches["flash_attention"], "max_abs_err": flash[512][0],
-         "ms": flash[512][1], "plain_ms": flash[512][2],
-         "bound_ms": flash[512][4][0], "bound_by": flash[512][4][1],
-         "library_ms": flash[512][3]},
+         "launches": launches["flash_attention"],
+         "max_abs_err": max(f[0] for f in flash.values()),
+         "ms": flash[1, 512][1], "plain_ms": flash[1, 512][2],
+         "bound_ms": flash[1, 512][4][0], "bound_by": flash[1, 512][4][1],
+         "library_ms": flash[1, 512][3]},
         {"name": "delta_apply", "route": "cuda",
          "source": "src/repro_torch/kernels/delta_apply/csrc/delta_apply.cu",
          "replaces": "src/repro/kernels/delta_apply/kernel.py:21",

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one `.cu` file with a plain C interface under
-`repro_torch/kernels/<name>/csrc/<name>.cu`.  It is compiled with `nvcc`
-for `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the repository
-root (the hash is over the source and the flags, so an edited source
-rebuilds) and loaded with `ctypes`.  Nothing is built when a module is
-imported: the first launch builds, or a caller builds every kernel at once
-with `build_all()`, one `nvcc` process per source, all started together.
+`repro_torch/kernels/<name>/csrc/<name>.cu`; the TMA/wgmma kernels also
+include the shared `repro_torch/kernels/hopper.cuh`.  It is compiled with
+`nvcc` for `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the
+repository root (the hash is over the source, the shared headers and the
+flags, so an edited source or header rebuilds) and loaded with `ctypes`.
+Nothing is built when a module is imported: the first launch builds, or a
+caller builds every kernel at once with `build_all()`, one `nvcc` process
+per source, all started together.
 """
 from __future__ import annotations
 
@@ -44,9 +46,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(source(name).read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, the shared
+    headers (`*.cuh`, which sources include) and the flags."""
+    h = hashlib.sha1(source(name).read_bytes())
+    for header in sorted(KERNELS_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def log_path(name: str) -> Path:
@@ -82,6 +88,14 @@ def build_all(names: Sequence[str] = NAMES) -> List[Path]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return [library_path(n) for n in names]
+
+
+def launch_error(err: int) -> str:
+    """A kernel library's nonzero return code in words: a cudaError_t, or
+    100000 + the CUresult of a TMA tensor map CUDA refused to encode."""
+    if err >= 100000:
+        return f"tensor map refused, CUresult {err - 100000}"
+    return f"cudaError {err}"
 
 
 def load(name: str) -> ctypes.CDLL:

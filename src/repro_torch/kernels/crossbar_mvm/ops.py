@@ -2,7 +2,11 @@
 uint8 weight codes with the Eq. 7 zero-point correction, f32 out.
 
 A CPU tensor goes to the plain PyTorch version (`ref.py`); a CUDA tensor
-launches the hand-written kernel (`csrc/crossbar_mvm.cu`) or raises.
+launches the hand-written kernel (`csrc/crossbar_mvm.cu`) or raises.  The
+kernel's 8-bit tensor-core product reads both operands K-major, so each
+call allocates scratch for one transposed copy of the weight codes (and,
+for a ragged K, a zero-padded copy of the activations) that the kernel's
+prep pass fills; their time is the kernel's.
 `crossbar_mvm.launches` counts kernel launches and nothing else.
 """
 import ctypes
@@ -21,10 +25,38 @@ MAX_K = 33025
 @functools.cache
 def _bind():
     fn = build.load("crossbar_mvm").crossbar_mvm_u8
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def padded_k(K: int) -> int:
+    """The row pitch of the kernel's K-major operands: K rounded up to 16
+    bytes, the stride TMA accepts.  The padding is zeros."""
+    return -(-K // 16) * 16
+
+
+def tma_ready(x_codes: torch.Tensor) -> bool:
+    """Whether TMA can read the (M, K) activation codes in place: rows 16
+    bytes apart and the data 16-byte aligned.  Otherwise the kernel reads a
+    zero-padded (M, padded_k(K)) copy that its prep pass writes."""
+    return x_codes.shape[1] % 16 == 0 and x_codes.data_ptr() % 16 == 0
+
+
+def scratch(x_codes: torch.Tensor, w_codes: torch.Tensor):
+    """The per-call scratch of the kernel, on the inputs' device: the
+    transposed weight codes Wᵀ (N, Kp) the 8-bit tensor cores read K-major,
+    the row and column sums (M + N) int32, and the padded activation copy
+    (M, Kp), or None when `tma_ready`."""
+    (M, K), N = x_codes.shape, w_codes.shape[1]
+    Kp = padded_k(K)
+    dev = x_codes.device
+    wt = torch.empty(N, Kp, dtype=torch.uint8, device=dev)
+    sums = torch.empty(M + N, dtype=torch.int32, device=dev)
+    xp = (None if tma_ready(x_codes)
+          else torch.empty(M, Kp, dtype=torch.uint8, device=dev))
+    return wt, sums, xp
 
 
 def crossbar_mvm(x_codes: torch.Tensor, w_codes: torch.Tensor, zp_x, zp_w,
@@ -47,16 +79,21 @@ def crossbar_mvm(x_codes: torch.Tensor, w_codes: torch.Tensor, zp_x, zp_w,
         return crossbar_mvm_plain(x_codes, w_codes, zp_x, zp_w, scale)
     if not (w_codes.is_cuda and w_codes.device == x_codes.device):
         raise ValueError("crossbar_mvm: inputs on one CUDA device")
-    x_codes, w_codes = x_codes.contiguous(), w_codes.contiguous()
     out = torch.empty(M, N, dtype=torch.float32, device=x_codes.device)
+    if out.numel() == 0:
+        return out
+    x_codes, w_codes = x_codes.contiguous(), w_codes.contiguous()
+    wt, sums, xp = scratch(x_codes, w_codes)
     f32 = lambda v: float(np.float32(float(v)))  # noqa: E731
     stream = torch.cuda.current_stream(x_codes.device).cuda_stream
     with torch.cuda.device(x_codes.device):
         err = _bind()(x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(),
-                      M, K, N, f32(zp_x), f32(zp_w), f32(scale), stream)
+                      wt.data_ptr(), None if xp is None else xp.data_ptr(),
+                      sums.data_ptr(), M, K, N, f32(zp_x), f32(zp_w),
+                      f32(scale), stream)
     if err != 0:
         raise RuntimeError(f"crossbar_mvm kernel launch failed: "
-                           f"cudaError {err}")
+                           f"{build.launch_error(err)}")
     crossbar_mvm.launches += 1
     return out
 

@@ -25,6 +25,12 @@ def _bind():
     return fn
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t` when its data starts on a 16-byte boundary, else a copy that
+    does: the kernel's TMA copies read only from such addresses."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -37,8 +43,10 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention: all inputs on one CUDA device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -46,7 +54,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
                       1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+                           f"{build.launch_error(err)}")
     flash_attention.launches += 1
     return out
 

@@ -18,9 +18,10 @@ from repro.kernels.delta_apply.ref import delta_apply_ref
 from repro.kernels.flash_attention.ref import flash_attention_ref as _flash_ref
 from repro.kernels.paged_attention.ref import paged_attention_ref
 from repro.kernels.pulse_count.ref import pulse_count_ref
+from repro_torch.kernels.crossbar_mvm import ops as crossbar_ops
 from repro_torch.kernels.crossbar_mvm.ops import MAX_K, crossbar_mvm
 from repro_torch.kernels.delta_apply.ops import apply_delta
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import aligned16, flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.pulse_count.ops import pulse_count
 
@@ -44,7 +45,8 @@ def _f32(x) -> np.ndarray:
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("s,d,causal", [(128, 32, True), (200, 64, False),
-                                        (256, 16, True)])
+                                        (256, 16, True), (77, 128, True),
+                                        (200, 256, True)])
 def test_flash_plain_matches_ref(s, d, causal, dtype):
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.default_rng(s + d)
@@ -157,6 +159,26 @@ def test_flash_wrapper_rejects_non_divisible_heads():
         flash_attention(q, kv, kv)
 
 
+def _misaligned(shape, dtype):
+    """A contiguous view whose data starts 1 element past an aligned
+    allocation."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+def test_flash_aligned16_copies_only_misaligned_inputs():
+    """The kernel's TMA copies read from 16-byte aligned addresses only:
+    an input whose data does not start on such a boundary is copied, an
+    aligned one is not."""
+    x = torch.randn(1, 8, 2, 16).bfloat16()
+    assert x.data_ptr() % 16 == 0 and aligned16(x) is x
+    y = _misaligned((1, 8, 2, 16), torch.bfloat16)
+    y.copy_(x)
+    assert y.data_ptr() % 16 != 0 and y.is_contiguous()
+    z = aligned16(y)
+    assert z is not y and z.data_ptr() % 16 == 0 and torch.equal(z, x)
+
+
 def test_launch_counters_stay_zero_on_cpu():
     """CPU tensors take the plain versions: no kernel launch is counted."""
     p0, f0 = paged_attention.launches, flash_attention.launches
@@ -198,7 +220,7 @@ def test_pulse_count_plain_matches_ref(n):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 64, 8), (70, 300, 90), (128, 128, 128),
-                                   (200, 1000, 64)])
+                                   (200, 1000, 64), (8, 3071, 200)])
 def test_crossbar_mvm_plain_matches_ref(m, k, n):
     rng = np.random.default_rng(m * k + n)
     x = rng.integers(0, 256, (m, k), dtype=np.uint8)
@@ -212,6 +234,43 @@ def test_crossbar_mvm_plain_matches_ref(m, k, n):
     assert got.dtype == torch.float32 and got.shape == (m, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-2)
+
+
+@pytest.mark.parametrize("k,kp", [(1, 16), (16, 16), (300, 304),
+                                  (3071, 3072), (3072, 3072),
+                                  (MAX_K, 33040)])
+def test_crossbar_padded_k(k, kp):
+    """The K-major operands' row pitch: K rounded up to 16 bytes."""
+    assert crossbar_ops.padded_k(k) == kp
+
+
+def test_crossbar_scratch_contract():
+    """The kernel reads the weights transposed (N, Kp) and the activations
+    in place only when TMA can (rows 16 bytes apart, data 16-byte aligned);
+    otherwise from a zero-padded (M, Kp) copy its prep pass writes."""
+    w = torch.zeros(3072, 40, dtype=torch.uint8)
+    x = torch.zeros(8, 3072, dtype=torch.uint8)
+    assert crossbar_ops.tma_ready(x)
+    wt, sums, xp = crossbar_ops.scratch(x, w)
+    assert (wt.dtype, tuple(wt.shape)) == (torch.uint8, (40, 3072))
+    assert (sums.dtype, tuple(sums.shape)) == (torch.int32, (8 + 40,))
+    assert xp is None and wt.device == sums.device == x.device
+    for ragged in (torch.zeros(8, 3071, dtype=torch.uint8),
+                   _misaligned((8, 3072), torch.uint8)):
+        assert not crossbar_ops.tma_ready(ragged)
+        wt, sums, xp = crossbar_ops.scratch(
+            ragged, torch.zeros(ragged.shape[1], 40, dtype=torch.uint8))
+        kp = crossbar_ops.padded_k(ragged.shape[1])
+        assert tuple(wt.shape) == (40, kp)
+        assert (xp.dtype, tuple(xp.shape)) == (torch.uint8, (8, kp))
+
+
+def test_launch_error_names_the_failing_layer():
+    """A kernel's return code: a cudaError_t, or 100000 + the CUresult of a
+    TMA tensor map CUDA refused to encode."""
+    from repro_torch.kernels.build import launch_error
+    assert launch_error(1) == "cudaError 1"
+    assert launch_error(100001) == "tensor map refused, CUresult 1"
 
 
 def test_install_kernel_wrappers_reject_bad_inputs():
