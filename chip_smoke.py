@@ -10,11 +10,14 @@ Phases (any failure exits non-zero before the last line):
      HMMA/IMMA) in each library's SASS: crossbar_mvm and flash_attention
      must have some;
   2. hold each kernel against its plain PyTorch version at the shapes its
-     path gives it and at the shapes its design finds hard (flash: every
-     head dim, GQA, ragged, causal and full, S 512 and 1000, the streaming
-     B 4 x S 512; crossbar: ragged tiles, a K that is not a multiple of
-     16 at M < 64), and time kernel, plain version and the PyTorch library
-     call where one computes the same function;
+     path gives it and at the shapes its design finds hard (paged: stale
+     garbage past every row's position, G 1 to 16, head dims 8 to 256,
+     rows of 8,192 tokens, timed cold; flash: every native head dim and
+     the zero-padded ones, GQA up to G 16, ragged, causal and full, S 512
+     and 1000, the streaming B 4 x S 512; delta_apply in place and out of
+     place; crossbar: ragged tiles, a K that is not a multiple of 16 at
+     M < 64), and time kernel, plain version and the PyTorch library call
+     where one computes the same function;
   3. serve requests through the port's engine at gemma-7b's full width
      (28 layers, seeded random weights), counting kernel launches;
   4. hold the first decode step's logits computed with the kernels against
@@ -38,6 +41,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -65,6 +69,39 @@ KERNEL_TOL = 2e-2              # bf16 output: the reference's own tolerance
 LOGIT_TOL = 0.05
 SLEEP_CYCLES = 100_000_000     # ~50 ms of device sleep at the H100's clocks
 REPEATS = 20                   # runs of a pipelined kernel held bit-identical
+DELTA_ROUNDS = 3               # in-turn rounds of delta_apply and torch.add
+L2_FLUSH_BYTES = 256 << 20     # read between cold timed calls: 5x the L2
+# paged decode, timed: gemma-7b's heads over a 1,024-token table
+# (PAGED_MAIN), a GQA shape, qwen3-32b's and qwen3-moe-235b-a22b's
+# full-width decode heads, rows long enough that the split is what feeds
+# the SMs, and the serve run's table (34 pages, rows at 40-543 tokens)
+PAGED_MAIN = "B8 Hkv16 G1 D256 page16 T64"
+PAGED_TIMED = {
+    PAGED_MAIN: dict(B=8, H=16, Hkv=16, D=256, page=16, T=64, seed=1),
+    "B8 Hkv4 G4 D128 page16 T64": dict(B=8, H=16, Hkv=4, D=128, page=16,
+                                       T=64, seed=2),
+    "qwen3-32b B8 H64 Hkv8 G8 D128 page16 T64": dict(
+        B=8, H=64, Hkv=8, D=128, page=16, T=64, seed=6),
+    "qwen3-moe-235b B8 H64 Hkv4 G16 D128 page16 T64": dict(
+        B=8, H=64, Hkv=4, D=128, page=16, T=64, seed=7),
+    "long rows B2 Hkv16 G1 D256 page16 T512 (8,192 tokens each)": dict(
+        B=2, H=16, Hkv=16, D=256, page=16, T=512, seed=8,
+        pos_list=[8191, 8191]),
+    "gemma-7b serve-like B8 Hkv16 G1 D256 page16 T34": dict(
+        B=8, H=16, Hkv=16, D=256, page=16, T=34, seed=9,
+        pos_list=[40, 120, 200, 290, 370, 450, 520, 543]),
+}
+# paged decode, untimed: head dims off the tensor cores' 16-column step and
+# group sizes that are not powers of two, (D, (H, Hkv), page, T)
+PAGED_UNTIMED = [(D, heads, 8, 20)
+                 for D in (8, 16, 24, 80)
+                 for heads in ((4, 4), (25, 5), (56, 8), (32, 2))] + [
+    (80, (16, 16), 16, 64), (256, (16, 16), 8, 9), (128, (64, 4), 4, 300)]
+# paged decode, untimed: tables so long and grids so wide (320 (row, KV
+# head) pairs) that each row is one split whose page ids slide through
+# the kernel's shared-memory window, a page of 1 and one of 12 (not a
+# divisor of the 32-token tile)
+PAGED_LONG_TABLES = [(8, (40, 40), 1, 3000), (16, (80, 40), 12, 700)]
 
 
 def log(msg: str) -> None:
@@ -88,6 +125,28 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_cold(fn, iters: int) -> float:
+    """Mean device time of `fn` in ms over `iters` calls, each made after a
+    read of L2_FLUSH_BYTES, so the call finds the 50 MB L2 holding none of
+    its inputs, as a decode step finds the KV pools after the projections;
+    timed by CUDA events around each call alone, queued behind a device
+    sleep."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
 def zero_launch_counts() -> None:
@@ -131,11 +190,12 @@ def tensor_core_counts(build):
 
 
 # ------------------------------------------------------------ phase 2
-def check_paged(torch, B, H, Hkv, D, page, T, seed):
-    """Kernel vs plain on a pool whose every position past a row's pos —
-    inside its live page and in its later pages — holds 1e4 garbage."""
-    from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+def paged_inputs(torch, B, H, Hkv, D, page, T, seed, pos_list=None):
+    """Random bf16 q and pools, a random page table and per-row positions;
+    every pool position past a row's pos — inside its live page and in its
+    later pages — holds 1e4 garbage.  The default positions start a row at
+    0, end rows exactly on a page boundary and one token past one, and end
+    the last rows at the table's last tokens."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     P = B * T + 1
@@ -145,8 +205,9 @@ def check_paged(torch, B, H, Hkv, D, page, T, seed):
     perm = torch.randperm(P - 1, generator=g, device=dev)[:B * T] + 1
     tables = perm.view(B, T).to(torch.int32)
     cap = T * page
-    pos_list = [0, page - 1, page, 3 * page + 5, cap // 2 + 7, cap - page,
-                cap - 2, cap - 1][:B]
+    if pos_list is None:
+        pos_list = [0, page - 1, page, 3 * page + 5, cap // 2 + 7,
+                    cap - page, cap - 2, cap - 1][:B]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     for b, p in enumerate(pos_list):       # stale garbage past each pos
         pages = tables[b].long()
@@ -156,30 +217,84 @@ def check_paged(torch, B, H, Hkv, D, page, T, seed):
         flat_v[p + 1:] = 1e4
         k[pages] = flat_k.view(T, page, Hkv, D)
         v[pages] = flat_v.view(T, page, Hkv, D)
-    out = paged_attention(q, k, v, tables, pos)
+    return q, k, v, tables, pos, pos_list
+
+
+def check_split_plan(torch):
+    """The kernel library's split plan, on this card's SM count: at most
+    32 splits that cover the table, chunks of whole 32-token tiles where
+    the page size allows, scratch sized to the splits; returns the plans
+    of PAGED_LONG_TABLES."""
+    from repro_torch.kernels.paged_attention.ops import split_plan
+    dev = torch.device("cuda", 0)
+    for T, page in ((1, 16), (6, 4), (34, 16), (64, 16), (300, 4),
+                    (512, 16), (700, 12), (100_000, 1)):
+        for rows in (1, 32, 128, 320, 4096):
+            n, chunk, n_part, n_ml, n_tick = split_plan(T, page, rows, 8,
+                                                        128, dev)
+            ok = (1 <= n <= 32 and (n - 1) * chunk < T <= n * chunk
+                  and (chunk == T or 32 % page or chunk * page % 32 == 0)
+                  and (n_part, n_ml, n_tick) == (
+                      (rows * n * 8 * 128, rows * n * 32, rows) if n > 1
+                      else (0, 0, 0)))
+            if not ok:
+                raise AssertionError(f"split plan T={T} page={page} "
+                                     f"rows={rows}: {n} x {chunk} pages, "
+                                     f"scratch {n_part}, {n_ml}, {n_tick}")
+    return {(page, T): split_plan(T, page, 8 * Hkv, H // Hkv, D, dev)[:2]
+            for D, (H, Hkv), page, T in PAGED_LONG_TABLES}
+
+
+def check_paged(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
+                timed=True):
+    """Kernel vs plain within KERNEL_TOL on stale-garbage pools, and the
+    kernel's output identical over repeats; when `timed`, the kernel's, the
+    plain version's and the pre-gathered SDPA yardstick's times and the
+    bound."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    dev = torch.device("cuda")
+    q, k, v, tables, pos, pos_list = paged_inputs(torch, B, H, Hkv, D, page,
+                                                  T, seed, pos_list)
     ref = paged_attention_plain(q, k, v, tables, pos)
+    out = paged_attention(q, k, v, tables, pos)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     if not (err <= KERNEL_TOL and torch.isfinite(out).all()):
-        raise AssertionError(f"paged_attention kernel disagrees: max abs "
-                             f"err {err} > {KERNEL_TOL}")
-    ms = cuda_ms(lambda: paged_attention(q, k, v, tables, pos), 50)
+        raise AssertionError(
+            f"paged_attention kernel disagrees at B={B} H={H} Hkv={Hkv} "
+            f"D={D} page={page} T={T}: max abs err {err} > {KERNEL_TOL}")
+    # the splits' merge order is fixed: a race on the tickets would show as
+    # runs that differ
+    if not all(torch.equal(paged_attention(q, k, v, tables, pos), out)
+               for _ in range(3)):
+        raise AssertionError(f"paged_attention output changes between runs "
+                             f"at B={B} H={H} Hkv={Hkv} D={D}")
+    if not timed:
+        return err, None, None, None, (None, None), None
+    # cold, as the decode step calls it; back to back (warm), as this
+    # script timed it before, when part of the pools stays in L2 between
+    # calls
+    ms = cuda_ms_cold(lambda: paged_attention(q, k, v, tables, pos), 50)
+    warm_ms = cuda_ms(lambda: paged_attention(q, k, v, tables, pos), 50)
     plain_ms = cuda_ms(lambda: paged_attention_plain(q, k, v, tables, pos), 5)
     # no single PyTorch call pages; as a yardstick only, SDPA over K/V
     # already gathered into rows (the gather itself not timed)
+    cap = T * page
     kg, vg = (x[tables.long()].view(B, cap, Hkv, D).transpose(1, 2)
               for x in (k, v))
     mask = (torch.arange(cap, device=dev)[None, :]
             <= pos[:, None]).view(B, 1, 1, cap)
-    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q.view(B, H, 1, D), kg, vg, attn_mask=mask,
-        enable_gqa=H != Hkv), 50)
-    live = sum(p + 1 for p in pos_list)
-    live_pages = sum(p // page + 1 for p in pos_list)
+    sdpa_ms = cuda_ms_cold(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.view(B, H, 1, D), kg, vg, attn_mask=mask, enable_gqa=H != Hkv),
+        50)
+    live = sum(min(p + 1, cap) for p in pos_list)
+    live_pages = sum(min(p // page + 1, T) for p in pos_list)
     n_bytes = (2 * B * H * D * 2 + 2 * live * Hkv * D * 2
                + live_pages * 4 + B * 4)
     n_flops = 4 * live * H * D
-    return err, ms, plain_ms, sdpa_ms, bound_ms(n_bytes, n_flops)
+    return err, ms, plain_ms, sdpa_ms, bound_ms(n_bytes, n_flops), warm_ms
 
 
 def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
@@ -196,7 +311,12 @@ def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
     q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
     k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
             for _ in range(2))
+    before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal)
+    if flash_attention.launches != before + 1:   # padded widths included
+        raise AssertionError(f"flash_attention at D={D} counted "
+                             f"{flash_attention.launches - before} launches "
+                             f"for one call")
     ref = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -247,10 +367,21 @@ def check_delta_apply(torch, n, seed):
     if err != 0:
         raise AssertionError(f"delta_apply kernel disagrees at n={n}: max "
                              f"abs err {err}")
-    ms = cuda_ms(lambda: apply_delta(old, out, out=out), 20)
+    # in place, as an install applies it, and out of place beside torch.add
+    # in turns, DELTA_ROUNDS rounds of (kernel, library, library, kernel,
+    # kernel in place); each time is the median of its runs
+    fns = {"in place": lambda: apply_delta(old, out, out=out),
+           "out of place": lambda: apply_delta(old, delta, out=out),
+           "torch.add": lambda: torch.add(old, delta, out=out)}  # wraps
+    runs = {k: [] for k in fns}
+    for _ in range(DELTA_ROUNDS):
+        for k in ("out of place", "torch.add", "torch.add", "out of place",
+                  "in place"):
+            runs[k].append(cuda_ms(fns[k], 20))
+    med = {k: statistics.median(v) for k, v in runs.items()}
     plain_ms = cuda_ms(lambda: delta_apply_plain(old, delta), 3)
-    lib_ms = cuda_ms(lambda: torch.add(old, delta, out=out), 20)  # wraps
-    return err, ms, plain_ms, lib_ms, bound_ms(3 * n, n, CORE_OPS_PER_S)
+    return (err, med["in place"], plain_ms, med["torch.add"],
+            bound_ms(3 * n, n, CORE_OPS_PER_S), med["out of place"], runs)
 
 
 def check_pulse_count(torch, n, seed):
@@ -727,28 +858,48 @@ def main() -> int:
                                  f"library")
 
     # phase 2: kernels against their plain versions
-    p_err, p_ms, p_plain, p_sdpa, (p_bound, p_by) = check_paged(
-        torch, B=8, H=16, Hkv=16, D=256, page=16, T=64, seed=1)
-    log(f"paged_attention B8 Hkv16 G1 D256 page16 T64: err {p_err:.3g}, "
-        f"{p_ms:.4f} ms (plain {p_plain:.4f} ms, sdpa over pre-gathered K/V "
-        f"{p_sdpa:.4f} ms), bound {p_bound:.4f} ms by {p_by}")
-    g_err, g_ms, g_plain, g_sdpa, (g_bound, g_by) = check_paged(
-        torch, B=8, H=16, Hkv=4, D=128, page=16, T=64, seed=2)
-    log(f"paged_attention B8 Hkv4 G4 D128 page16 T64: err {g_err:.3g}, "
-        f"{g_ms:.4f} ms (plain {g_plain:.4f} ms, sdpa over pre-gathered K/V "
-        f"{g_sdpa:.4f} ms), bound {g_bound:.4f} ms by {g_by}")
+    paged = {}
+    for label, shape in PAGED_TIMED.items():
+        paged[label] = check_paged(torch, **shape)
+        err, ms, plain_ms, sdpa_ms, (b, by), warm_ms = paged[label]
+        log(f"paged_attention {label}: err {err:.3g}, {ms:.4f} ms cold, "
+            f"{warm_ms:.4f} ms back to back (plain {plain_ms:.4f} ms, sdpa "
+            f"over pre-gathered K/V {sdpa_ms:.4f} ms cold), bound {b:.4f} "
+            f"ms by {by}, kernel/bound {ms / b:.2f}")
+    for D, (H, Hkv), page, T in PAGED_UNTIMED:
+        err = check_paged(torch, B=8, H=H, Hkv=Hkv, D=D, page=page, T=T,
+                          seed=D * 31 + H, timed=False)[0]
+        log(f"paged_attention B8 H{H} Hkv{Hkv} G{H // Hkv} D{D} page{page} "
+            f"T{T}: err {err:.3g}")
+    err = check_paged(torch, B=3, H=4, Hkv=2, D=32, page=4, T=6, seed=4,
+                      timed=False)[0]
+    log(f"paged_attention B3 Hkv2 G2 D32 page4 T6: err {err:.3g}")
+    plans = check_split_plan(torch)
+    log(f"paged_attention split plans (splits, pages per split) of the "
+        f"long tables: {plans}")
+    for D, (H, Hkv), page, T in PAGED_LONG_TABLES:
+        if plans[page, T][1] <= 256:
+            raise AssertionError(f"page{page} T{T}: the chunk of "
+                                 f"{plans[page, T][1]} pages does not "
+                                 f"slide the page-id window")
+        err = check_paged(torch, B=8, H=H, Hkv=Hkv, D=D, page=page, T=T,
+                          seed=T + page, timed=False)[0]
+        log(f"paged_attention B8 H{H} Hkv{Hkv} G{H // Hkv} D{D} page{page} "
+            f"T{T} (one split, sliding page-id window): err {err:.3g}")
     err = check_flash(torch, S=77, H=8, D=64, seed=3, Hkv=2, timed=False)[0]
     log(f"flash_attention S77 H8 Hkv2 D64 causal (GQA, ragged): err "
         f"{err:.3g}")
-    err = check_paged(torch, B=3, H=4, Hkv=2, D=32, page=4, T=6, seed=4)[0]
-    log(f"paged_attention B3 Hkv2 G2 D32 page4 T6: err {err:.3g}")
-    for D in (32, 64, 128, 256):   # every head dim the kernel takes
+    # every native head dim, and the zero-padded ones
+    for D in (8, 16, 24, 80, 32, 64, 128, 256):
         for causal in (True, False):
             err = check_flash(torch, S=200, H=4, D=D, seed=D + causal,
                               Hkv=2, B=2, causal=causal, timed=False)[0]
             log(f"flash_attention B2 S200 H4 Hkv2 D{D} "
                 f"{'causal' if causal else 'full'} (GQA, ragged): err "
                 f"{err:.3g}")
+    err = check_flash(torch, S=200, H=32, D=128, seed=16, Hkv=2, B=2,
+                      timed=False)[0]
+    log(f"flash_attention B2 S200 H32 Hkv2 (G16) D128 causal: err {err:.3g}")
     flash = {}
     for B, S in ((1, 512), (1, 1000), (4, 512)):
         flash[B, S] = check_flash(torch, S=S, H=16, D=256, seed=S + B, B=B)
@@ -760,10 +911,16 @@ def main() -> int:
     pulses = {}
     for n in (LAYER_CODES, 70_001):
         delta[n] = check_delta_apply(torch, n, seed=n % 997)
-        err, ms, plain_ms, lib_ms, (b, by) = delta[n]
-        log(f"delta_apply n {n:,}: err {err}, {ms:.4f} ms in place (plain "
-            f"{plain_ms:.4f} ms, torch.add on uint8 {lib_ms:.4f} ms), bound "
-            f"{b:.4f} ms by {by}")
+        err, ms, plain_ms, lib_ms, (b, by), oop_ms, runs = delta[n]
+        log(f"delta_apply n {n:,}: err {err}, {ms:.4f} ms in place, "
+            f"{oop_ms:.4f} ms out of place (torch.add on uint8 "
+            f"{lib_ms:.4f} ms, kernel/torch.add {oop_ms / lib_ms:.3f}; "
+            f"plain {plain_ms:.4f} ms), bound {b:.4f} ms by {by}, "
+            f"bound/kernel {b / ms:.3f}; medians of "
+            f"{DELTA_ROUNDS} rounds in turns)")
+        log(f"delta_apply n {n:,} runs (ms): " + "; ".join(
+            f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+            for k, v in runs.items()))
         pulses[n] = check_pulse_count(torch, n, seed=n % 991)
         err, got, ms, plain_ms, (b, by) = pulses[n]
         log(f"pulse_count n {n:,}: err {err} (pulses, unchanged {got}), "
@@ -846,9 +1003,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
                    "paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:70",
-         "launches": launches["paged_attention"], "max_abs_err": p_err,
-         "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound,
-         "bound_by": p_by, "library_ms": None},
+         "launches": launches["paged_attention"],
+         "max_abs_err": max(r[0] for r in paged.values()),
+         "ms": paged[PAGED_MAIN][1], "plain_ms": paged[PAGED_MAIN][2],
+         "bound_ms": paged[PAGED_MAIN][4][0],
+         "bound_by": paged[PAGED_MAIN][4][1], "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",

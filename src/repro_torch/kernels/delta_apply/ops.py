@@ -18,8 +18,7 @@ from repro_torch.kernels.delta_apply.ref import delta_apply_plain
 @functools.cache
 def _bind():
     fn = build.load("delta_apply").delta_apply_u8
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                             ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -30,7 +29,8 @@ def apply_delta(old: torch.Tensor, delta: torch.Tensor, *,
     `out` (which may be `old` or `delta` itself: the update is elementwise)
     the result is written there and returned; otherwise into a new tensor.
     On the card every tensor starts on a 16-byte boundary, as the
-    allocator's tensors do: the kernel moves 16 bytes per access."""
+    allocator's tensors do: the kernel moves 16 bytes per access and only
+    the n % 16 tail bytewise."""
     if old.dtype != torch.uint8 or delta.dtype != torch.uint8 \
             or old.shape != delta.shape:
         raise ValueError(f"apply_delta takes uint8 codes and deltas of one "
@@ -51,11 +51,10 @@ def apply_delta(old: torch.Tensor, delta: torch.Tensor, *,
     if any(t.data_ptr() % 16 for t in (old, delta, out)):
         raise ValueError("apply_delta: CUDA tensors must start on a 16-byte "
                          "boundary")
-    n_sms = torch.cuda.get_device_properties(old.device).multi_processor_count
     stream = torch.cuda.current_stream(old.device).cuda_stream
     with torch.cuda.device(old.device):
         err = _bind()(old.data_ptr(), delta.data_ptr(), out.data_ptr(),
-                      old.numel(), n_sms, stream)
+                      old.numel(), stream)
     if err != 0:
         raise RuntimeError(f"delta_apply kernel launch failed: cudaError {err}")
     apply_delta.launches += 1

@@ -5,14 +5,21 @@ head h reading KV head h // (H / Hkv).  A CPU tensor goes to the plain
 PyTorch version (`ref.py`); a CUDA tensor launches the hand-written kernel
 (`csrc/flash_attention.cu`) or raises.  `flash_attention.launches` counts
 kernel launches and nothing else.
+
+The kernel is built for head dims 32, 64, 128 and 256.  Any other multiple
+of 8 up to 256 is zero-padded along D to the next of those: zero columns
+add nothing to Q·Kᵀ, the true 1/sqrt(D) is passed as the scale, and the
+zero V columns are sliced off the output, so the result is exact.  The
+padding costs one copy of q, k and v, and only off the four native widths.
 """
 import ctypes
 import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import aligned16, build
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 
@@ -25,10 +32,23 @@ def _bind():
     return fn
 
 
-def aligned16(t: torch.Tensor) -> torch.Tensor:
-    """`t` when its data starts on a 16-byte boundary, else a copy that
-    does: the kernel's TMA copies read only from such addresses."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+NATIVE_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def native_head_dim(head_dim: int) -> int:
+    """The kernel's width for `head_dim`: the least of NATIVE_HEAD_DIMS at
+    or above it.  Raises ValueError unless head_dim is a multiple of 8
+    from 8 to 256."""
+    if head_dim % 8 or not 8 <= head_dim <= 256:
+        raise ValueError(f"flash_attention kernel needs a head_dim that is "
+                         f"a multiple of 8 from 8 to 256; got {head_dim}")
+    return next(n for n in NATIVE_HEAD_DIMS if n >= head_dim)
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """`x` zero-padded along its last axis to `width` (itself when it
+    already has that width)."""
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
@@ -37,26 +57,25 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise ValueError(f"flash_attention kernel takes bf16 q/k/v; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in (32, 64, 128, 256):
-        raise ValueError(f"flash_attention kernel needs head_dim in 32, 64, "
-                         f"128, 256; got {D}")
+    width = native_head_dim(D)
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention: all inputs on one CUDA device")
-    q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
+    q, k, v = (aligned16(pad_head_dim(t, width).contiguous())
+               for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :D]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Sq, Skv, H, Hkv, D, int(causal),
+                      out.data_ptr(), B, Sq, Skv, H, Hkv, width, int(causal),
                       1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{build.launch_error(err)}")
     flash_attention.launches += 1
-    return out
+    return out if width == D else out[..., :D]
 
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:

@@ -4,18 +4,21 @@ h // (H / Hkv).  The math of
 `repro.kernels.flash_attention.ref.flash_attention_ref`.  CPU tensors take
 it; `chip_smoke.py` holds the kernel against it on the card."""
 import math
+from typing import Optional
 
 import torch
 
 
-def flash_attention_plain(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_plain(q, k, v, causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Sq, H, D); k/v (B, Skv, Hkv, D) with H % Hkv == 0.  Returns
     (B, Sq, H, D) in q's dtype.  Causal masks key j for query i when
-    j > i."""
+    j > i.  `scale` multiplies the scores (default 1/sqrt(D))."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     if causal:

@@ -66,7 +66,7 @@ def _run_streaming(args) -> None:
           f"plan overlap speedup {m['plan_overlap_speedup']:.2f}×")
 
 
-def main() -> None:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", choices=ARCHS, default="gemma-7b")
     p.add_argument("--smoke", action="store_true")
@@ -75,9 +75,9 @@ def main() -> None:
                       help="continuous-batching engine")
     mode.add_argument("--streaming", action="store_true",
                       help="one forward of the layer-streaming executor")
-    p.add_argument("--arena-slots", type=int, default=2,
+    p.add_argument("--arena-slots", type=int, default=3,
                    help="streaming: layers the device arena holds")
-    p.add_argument("--batch", type=int, default=2,
+    p.add_argument("--batch", type=int, default=4,
                    help="streaming: sequences in the batch")
     p.add_argument("--seed", type=int, default=0,
                    help="streaming: seed of the random prompt tokens")
@@ -90,7 +90,11 @@ def main() -> None:
     p.add_argument("--requests", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="torch device (cpu runs the plain kernel versions)")
-    args = p.parse_args()
+    return p
+
+
+def main() -> None:
+    args = _parser().parse_args()
     (_run_streaming if args.streaming else _run_engine)(args)
 
 

@@ -18,10 +18,15 @@ from repro.kernels.delta_apply.ref import delta_apply_ref
 from repro.kernels.flash_attention.ref import flash_attention_ref as _flash_ref
 from repro.kernels.paged_attention.ref import paged_attention_ref
 from repro.kernels.pulse_count.ref import pulse_count_ref
+from repro.configs import ARCHS, get_config
+from repro_torch.kernels import aligned16
 from repro_torch.kernels.crossbar_mvm import ops as crossbar_ops
 from repro_torch.kernels.crossbar_mvm.ops import MAX_K, crossbar_mvm
 from repro_torch.kernels.delta_apply.ops import apply_delta
-from repro_torch.kernels.flash_attention.ops import aligned16, flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.pulse_count.ops import pulse_count
 
@@ -46,7 +51,8 @@ def _f32(x) -> np.ndarray:
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("s,d,causal", [(128, 32, True), (200, 64, False),
                                         (256, 16, True), (77, 128, True),
-                                        (200, 256, True)])
+                                        (200, 256, True), (96, 8, True),
+                                        (77, 24, False), (130, 80, True)])
 def test_flash_plain_matches_ref(s, d, causal, dtype):
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.default_rng(s + d)
@@ -85,7 +91,13 @@ def test_flash_plain_gqa_matches_ref_with_repeated_kv(dtype):
 @pytest.mark.parametrize("b,h,hkv,d,pool,page,t",
                          [(3, 4, 2, 32, 9, 4, 6),    # GQA, odd pool
                           (2, 6, 6, 16, 5, 8, 4),    # MHA
-                          (1, 8, 2, 64, 12, 16, 8)])  # single row, big page
+                          (1, 8, 2, 64, 12, 16, 8),  # single row, big page
+                          (2, 32, 2, 32, 9, 4, 4),   # G 16
+                          (2, 10, 2, 16, 9, 4, 4),   # G 5
+                          (3, 14, 2, 32, 12, 4, 4),  # G 7
+                          (2, 8, 2, 8, 7, 4, 3),     # D 8
+                          (2, 4, 4, 24, 7, 8, 3),    # D 24
+                          (2, 4, 2, 80, 9, 4, 4)])   # D 80
 def test_paged_plain_matches_ref(b, h, hkv, d, pool, page, t, dtype):
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.default_rng(b * pool + page)
@@ -150,6 +162,60 @@ def test_paged_wrapper_rejects_non_int32_tables():
     for bad in (tables.float(), tables.long()):
         with pytest.raises(ValueError, match="int32"):
             paged_attention(q, kp, vp, bad, pos)
+
+
+def _gqa_decode_shapes():
+    """(head_dim, query heads per KV head) of every GQA config of the
+    reference, smoke and full (MLA's decode never reaches this kernel)."""
+    shapes = set()
+    for arch in ARCHS:
+        for smoke in (False, True):
+            cfg = get_config(arch, smoke=smoke)
+            if cfg.attn_type == "gqa":
+                shapes.add((cfg.head_dim, cfg.n_heads // cfg.n_kv_heads))
+    return sorted(shapes)
+
+
+def test_paged_kernel_contract_takes_every_reference_gqa_config():
+    """The kernel's contract, checked in pure Python before any launch:
+    every head dim and group size of the reference's GQA configs passes,
+    and the others raise.  (The split plan lives in the kernel's library;
+    `chip_smoke.py` holds its invariants on the card.)"""
+    shapes = _gqa_decode_shapes()
+    assert {(8, 4), (16, 2), (128, 16), (64, 5), (128, 7)} <= set(shapes)
+    for head_dim, group in shapes:
+        paged_ops.check_contract(head_dim, group)
+    for head_dim, group in ((12, 1), (128, 17), (264, 1), (0, 1), (64, 0)):
+        with pytest.raises(ValueError):
+            paged_ops.check_contract(head_dim, group)
+
+
+@pytest.mark.parametrize("d,width", [(8, 32), (16, 32), (24, 32), (32, 32),
+                                     (80, 128), (128, 128), (192, 256),
+                                     (256, 256)])
+def test_flash_head_dim_padding_is_exact(d, width):
+    """Off the kernel's four native widths the wrapper zero-pads q, k and v
+    along D and passes the true 1/sqrt(D): through the plain version, the
+    padded inputs with that scale give the unpadded result."""
+    assert flash_ops.native_head_dim(d) == width
+    rng = np.random.default_rng(d)
+    B, S, H, Hkv = 2, 37, 4, 2
+    q = torch.from_numpy(rng.standard_normal((B, S, H, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Hkv, d))
+                             .astype(np.float32)) for _ in range(2))
+    want = flash_attention_plain(q, k, v, causal=True)
+    padded = [flash_ops.pad_head_dim(x, width) for x in (q, k, v)]
+    assert all(x.shape[-1] == width for x in padded)
+    got = flash_attention_plain(*padded, causal=True,
+                                scale=1.0 / np.sqrt(d))[..., :d]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_flash_kernel_contract_rejects_other_head_dims():
+    for d in (12, 4, 264):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            flash_ops.native_head_dim(d)
 
 
 def test_flash_wrapper_rejects_non_divisible_heads():

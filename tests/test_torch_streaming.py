@@ -211,3 +211,10 @@ def test_streaming_cli_runs_on_cpu(capsys):
         prompt_len=8, seed=0))
     out = capsys.readouterr().out
     assert out.startswith("streaming forward: ") and "wire" in out
+
+
+def test_serve_cli_defaults_match_the_reference():
+    """The streaming defaults of the reference CLI:
+    src/repro/launch/serve.py:215,220 (--batch 4, --arena-slots 3)."""
+    args = serve._parser().parse_args(["--streaming"])
+    assert (args.arena_slots, args.batch) == (3, 4)
