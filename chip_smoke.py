@@ -8,16 +8,18 @@ Phases (any failure exits non-zero before the last line):
      the sources in this checkout (one nvcc per source, in parallel), and
      count the tensor-core instructions (wgmma HGMMA/IGMMA, mma.sync
      HMMA/IMMA) in each library's SASS: crossbar_mvm and flash_attention
-     must have some;
+     must have some, the f32 attention libraries none (no TF32);
   2. hold each kernel against its plain PyTorch version at the shapes its
      path gives it and at the shapes its design finds hard (paged: stale
      garbage past every row's position, G 1 to 16, head dims 8 to 256,
      rows of 8,192 tokens, timed cold; flash: every native head dim and
      the zero-padded ones, GQA up to G 16, ragged, causal and full, S 512
-     and 1000, the streaming B 4 x S 512; delta_apply in place and out of
-     place; crossbar: ragged tiles, a K that is not a multiple of 16 at
-     M < 64), and time kernel, plain version and the PyTorch library call
-     where one computes the same function;
+     and 1000, the streaming B 4 x S 512; the f32 attention kernels at
+     3e-4 against plain versions whose products stay in full f32, at the
+     serve run's paged shape, a GQA one and S 512; delta_apply in place
+     and out of place; crossbar: ragged tiles, a K that is not a multiple
+     of 16 at M < 64), and time kernel, plain version and the PyTorch
+     library call where one computes the same function;
   3. serve requests through the port's engine at gemma-7b's full width
      (28 layers, seeded random weights), counting kernel launches;
   4. hold the first decode step's logits computed with the kernels against
@@ -31,13 +33,22 @@ Phases (any failure exits non-zero before the last line):
      the store's, and one with the install kernels swapped for their plain
      versions — logits and per-install pulse counts must be identical;
      then the crossbar int8 matmul path on that store's real codes;
-  6. print the `kernels` JSON line, then the result line.
+  6. serve two gemma-7b tenants at full width, tenant-b a perturbation of
+     tenant-a: once with every layer resident, once through an ARAS weight
+     arena of n_layers + 1 slots (reuse on, the install pipeline overlapped
+     with decode, turns of 8 steps), counting paged, flash and pulse_count
+     launches and timing every pair cost the install greedy computes; the
+     greedy tokens of the two runs must be equal, and three committed
+     cross-tenant pair costs must equal their recomputation through the
+     plain pulse_count;
+  7. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -59,6 +70,7 @@ CORE_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores,
                                # the bound taken for integer work on CUDA cores
 LAYER_CODES = 276_824_064      # quantized weights of one gemma-7b layer
 KERNEL_TOL = 2e-2              # bf16 output: the reference's own tolerance
+F32_TOL = 3e-4                 # f32 output: the reference's own tolerance
 # Logits after 28 bf16 layers: kernel and plain version round each layer's
 # attention output at different points (online vs two-pass softmax, f32 sums
 # in another order), which moves a few elements by one bf16 ulp (2**-8
@@ -102,6 +114,18 @@ PAGED_UNTIMED = [(D, heads, 8, 20)
 # the kernel's shared-memory window, a page of 1 and one of 12 (not a
 # divisor of the 32-token tile)
 PAGED_LONG_TABLES = [(8, (40, 40), 1, 3000), (16, (80, 40), 12, 700)]
+# paged decode in f32, timed and reported: the serve run's table
+PAGED_F32_MAIN = "gemma-7b serve-like B8 Hkv16 G1 D256 page16 T34"
+
+
+def f32_fields(errs, checked, library_ms):
+    """The f32 kernel's entries of a `kernels` line record: its largest
+    error over every f32 check, and the timed check's time, plain version's
+    time, bound and library call's time."""
+    _, ms, plain_ms, _, (b, by) = checked[:5]
+    return {"f32_max_abs_err": max(errs), "f32_ms": ms,
+            "f32_plain_ms": plain_ms, "f32_bound_ms": b, "f32_bound_by": by,
+            "f32_library_ms": library_ms}
 
 
 def log(msg: str) -> None:
@@ -190,18 +214,21 @@ def tensor_core_counts(build):
 
 
 # ------------------------------------------------------------ phase 2
-def paged_inputs(torch, B, H, Hkv, D, page, T, seed, pos_list=None):
-    """Random bf16 q and pools, a random page table and per-row positions;
-    every pool position past a row's pos — inside its live page and in its
-    later pages — holds 1e4 garbage.  The default positions start a row at
-    0, end rows exactly on a page boundary and one token past one, and end
-    the last rows at the table's last tokens."""
+def paged_inputs(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
+                 dtype=None):
+    """Random q and pools (bf16 unless `dtype`), a random page table and
+    per-row positions; every pool position past a row's pos — inside its
+    live page and in its later pages — holds 1e4 garbage.  The default
+    positions start a row at 0, end rows exactly on a page boundary and
+    one token past one, and end the last rows at the table's last
+    tokens."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     P = B * T + 1
-    q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
-    k = torch.randn(P, page, Hkv, D, generator=g, device=dev).bfloat16()
-    v = torch.randn(P, page, Hkv, D, generator=g, device=dev).bfloat16()
+    dtype = dtype or torch.bfloat16
+    q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(P, page, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(P, page, Hkv, D, generator=g, device=dev).to(dtype)
     perm = torch.randperm(P - 1, generator=g, device=dev)[:B * T] + 1
     tables = perm.view(B, T).to(torch.int32)
     cap = T * page
@@ -246,8 +273,9 @@ def check_split_plan(torch):
 
 
 def check_paged(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
-                timed=True):
-    """Kernel vs plain within KERNEL_TOL on stale-garbage pools, and the
+                timed=True, dtype=None):
+    """Kernel vs plain within KERNEL_TOL (F32_TOL for f32 inputs, the plain
+    version's products in full f32) on stale-garbage pools, and the
     kernel's output identical over repeats; when `timed`, the kernel's, the
     plain version's and the pre-gathered SDPA yardstick's times and the
     bound."""
@@ -255,15 +283,17 @@ def check_paged(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
     from repro_torch.kernels.paged_attention.ref import paged_attention_plain
     dev = torch.device("cuda")
     q, k, v, tables, pos, pos_list = paged_inputs(torch, B, H, Hkv, D, page,
-                                                  T, seed, pos_list)
+                                                  T, seed, pos_list, dtype)
+    tol = F32_TOL if q.dtype == torch.float32 else KERNEL_TOL
     ref = paged_attention_plain(q, k, v, tables, pos)
     out = paged_attention(q, k, v, tables, pos)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    if not (err <= KERNEL_TOL and torch.isfinite(out).all()):
+    if not (err <= tol and torch.isfinite(out).all()
+            and out.dtype == q.dtype):
         raise AssertionError(
             f"paged_attention kernel disagrees at B={B} H={H} Hkv={Hkv} "
-            f"D={D} page={page} T={T}: max abs err {err} > {KERNEL_TOL}")
+            f"D={D} page={page} T={T} {q.dtype}: max abs err {err} > {tol}")
     # the splits' merge order is fixed: a race on the tickets would show as
     # runs that differ
     if not all(torch.equal(paged_attention(q, k, v, tables, pos), out)
@@ -291,25 +321,31 @@ def check_paged(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
         50)
     live = sum(min(p + 1, cap) for p in pos_list)
     live_pages = sum(min(p // page + 1, T) for p in pos_list)
-    n_bytes = (2 * B * H * D * 2 + 2 * live * Hkv * D * 2
+    size = q.element_size()
+    n_bytes = (2 * B * H * D * size + 2 * live * Hkv * D * size
                + live_pages * 4 + B * 4)
     n_flops = 4 * live * H * D
-    return err, ms, plain_ms, sdpa_ms, bound_ms(n_bytes, n_flops), warm_ms
+    rate = CORE_OPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    return (err, ms, plain_ms, sdpa_ms, bound_ms(n_bytes, n_flops, rate),
+            warm_ms)
 
 
 def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
-                timed=True):
-    """Kernel vs plain within KERNEL_TOL; when `timed`, also the kernel's
-    output identical over REPEATS runs, and the kernel's, the plain
-    version's and SDPA's times and the bound."""
+                timed=True, dtype=None):
+    """Kernel vs plain within KERNEL_TOL (F32_TOL for f32 inputs, the plain
+    version's products in full f32); when `timed`, also the kernel's output
+    identical over REPEATS runs, and the kernel's, the plain version's and
+    SDPA's times and the bound."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     Hkv = Hkv or H
-    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
-    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
+    dtype = dtype or torch.bfloat16
+    tol = F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
             for _ in range(2))
     before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal)
@@ -320,10 +356,11 @@ def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
     ref = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    if not (err <= KERNEL_TOL and torch.isfinite(out).all()):
+    if not (err <= tol and torch.isfinite(out).all()
+            and out.dtype == dtype):
         raise AssertionError(f"flash_attention kernel disagrees at B={B} "
-                             f"S={S} H={H} Hkv={Hkv} D={D} causal={causal}: "
-                             f"max abs err {err} > {KERNEL_TOL}")
+                             f"S={S} H={H} Hkv={Hkv} D={D} causal={causal} "
+                             f"{dtype}: max abs err {err} > {tol}")
     if not timed:
         return err, None, None, None, (None, None)
     # the kernel's stages pass between two warpgroups through mbarriers: a
@@ -338,10 +375,11 @@ def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv), 20)
-    n_bytes = 2 * B * S * (H + Hkv) * D * 2
+    n_bytes = 2 * B * S * (H + Hkv) * D * q.element_size()
     pairs = S * (S + 1) // 2 if causal else S * S
     n_flops = 4 * B * D * H * pairs
-    return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops)
+    rate = CORE_OPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops, rate)
 
 
 def _codes(torch, n, gen, dev):
@@ -474,6 +512,9 @@ def serve(torch, cfg, params, requests, page):
         sched=SchedulerConfig(max_prefill_per_step=4), device="cuda")
     for prompt, n_new, sampling in requests:
         eng.submit("gemma-7b", prompt, max_new_tokens=n_new, **sampling)
+    # the tenant's weights go into its arena (cold installs, accounted) as
+    # they are loaded: set-up, outside the timed run
+    eng.residency.ensure("gemma-7b", 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
@@ -595,16 +636,18 @@ def profile_step(torch, step, steps, label, bound_ms_):
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         log(f"  {e.device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{e.count // steps:5d}x  {e.key[:90]}")
+    return wall_ms
 
 
 def profile_decode(torch, cfg, params, arena, steps=5):
     """A batched decode step of the arena's 8 rows."""
     from repro_torch.launch.steps import paged_serve_step
     tok, pos, tables = arena.decode_inputs()
-    profile_step(torch, lambda: paged_serve_step(params, tok, arena.caches,
-                                                 pos, tables, cfg), steps,
-                 f"decode step (8 rows, {cfg.n_layers} layers)",
-                 cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3)
+    return profile_step(
+        torch, lambda: paged_serve_step(params, tok, arena.caches, pos,
+                                        tables, cfg), steps,
+        f"decode step (8 rows, {cfg.n_layers} layers)",
+        cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3)
 
 
 def profile_prefill(torch, cfg, params, prompt, steps=3):
@@ -824,6 +867,300 @@ def crossbar_path(torch, x_codes, zp_x, mats, counter):
     return launches
 
 
+# ------------------------------------------------------------ phase 6
+TURN_STEPS = 8                 # --turn-steps, the reference CLI's default
+
+
+def perturb_on_device(torch, params, scale=0.02, seed=1):
+    """tenant-b: `perturbed_variant`'s formula — every leaf of >= 2 dims and
+    >= 1024 elements plus N(0, (scale · std)²) noise rounded to its dtype,
+    leaves in jax's order — with the normals drawn on the card from a
+    torch.Generator(seed) instead of numpy's stream, which the host draws
+    chunk by chunk; smaller leaves are shared."""
+    from repro_torch.serving.variants import CHUNK, _std
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            done = {k: walk(node[k]) for k in sorted(node)}
+            return {k: done[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if node.ndim < 2 or node.numel() < 1024:
+            return node
+        factor = scale * _std(node)
+        out = torch.empty_like(node)
+        src, dst = node.reshape(-1), out.view(-1)
+        for s in range(0, src.numel(), CHUNK):
+            n = min(CHUNK, src.numel() - s)
+            z = torch.randn(n, generator=gen, device="cuda").mul_(factor)
+            torch.add(src[s:s + n], z.to(node.dtype), out=dst[s:s + n])
+        return out
+
+    return walk(params)
+
+
+def two_tenant_requests(cfg):
+    """Eight requests alternating between the tenants, as `--engine`
+    submits them: prompts of 64-256 tokens, 24-32 new tokens each, so a
+    tenant needs several turns and the arena switches both ways."""
+    rng = np.random.default_rng(1)
+    return [(("tenant-a", "tenant-b")[i % 2],
+             rng.integers(1, cfg.vocab, int(rng.integers(64, 257))).tolist(),
+             int(rng.integers(24, 33))) for i in range(8)]
+
+
+def two_tenant_run(torch, cfg, tenants, slots, requests, **engine_kw):
+    """Build the two-tenant engine (its store included, timed), then serve
+    `requests` with the launch counts set to 0 just before; returns (engine,
+    summary, tokens by request, build s, serve s, launches)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.pulse_count.ops import pulse_count
+    from repro_torch.serving import EngineModel, SchedulerConfig, ServingEngine
+    from repro_torch.serving import engine as engine_mod
+    max_seq = max(len(p) + n for _, p, n in requests)
+    t0 = time.perf_counter()
+    eng = ServingEngine(
+        [EngineModel(name, params, cfg, kv_slots=4, max_seq=max_seq,
+                     page_size=16) for name, params in tenants.items()],
+        weight_arena_slots=slots,
+        sched=SchedulerConfig(max_prefill_per_step=4,
+                              model_turn_steps=TURN_STEPS),
+        device="cuda", **engine_kw)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    instrumented = instrument_residency(torch, eng)
+    for model, prompt, n_new in requests:
+        eng.submit(model, prompt, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_step = engine_mod.fused_paged_serve_step
+    decode_batches = []          # one per tenant decoded in a step
+
+    def counted(*args):
+        decode_batches.append(1)
+        return decode_step(*args)
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(engine_mod, "fused_paged_serve_step", counted):
+        summary = eng.run()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_attention": flash_attention.launches,
+                "pulse_count": pulse_count.launches}
+    reqs = list(eng.requests.values())
+    if not all(r.status.value == "finished"
+               and len(r.generated) == r.max_new_tokens
+               and all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+        raise AssertionError("two tenants: not every request finished "
+                             "inside the vocab: " + ", ".join(
+                                 f"{r.rid}:{r.status.value}:"
+                                 f"{len(r.generated)}" for r in reqs))
+    prefills = sum(s.n_prefills for s in eng.metrics.steps)
+    misses = instrumented[0]
+    want = {"paged_attention": cfg.n_layers * len(decode_batches),
+            "flash_attention": cfg.n_layers * prefills,
+            "pulse_count": len(misses)}
+    if launches != want or not all(launches.values()):
+        raise AssertionError(f"two tenants, {slots} slots: launches "
+                             f"{launches}, want {want}")
+    tokens = {r.rid: list(r.generated) for r in reqs}
+    return eng, summary, tokens, t_build, t_serve, launches, instrumented
+
+
+def instrument_residency(torch, eng):
+    """Time every pair cost the greedy computes (a memo miss) with its
+    engine step: host wall (each ends in host syncs) and device span (CUDA
+    events around it); and log every committed install as (occupant,
+    layer, step)."""
+    res = eng.residency
+    misses, commits = [], []
+    cost, install = res._cost, res._install
+
+    def timed(occupant, layer):
+        if (occupant, layer) in res._cost_cache:
+            return cost(occupant, layer)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        got = cost(occupant, layer)
+        end.record()
+        end.synchronize()
+        misses.append((occupant, layer, eng._step_no,
+                       time.perf_counter() - t0,
+                       start.elapsed_time(end) / 1e3))
+        return got
+
+    def logged(layer, slot, step):
+        occupant = res.slots[slot]
+        wire = install(layer, slot, step)
+        if wire is not None:
+            commits.append((occupant, layer, step))
+        return wire
+
+    res._cost, res._install = timed, logged
+    return misses, commits
+
+
+def recost_pairs(torch, res, pairs):
+    """Recompute each pair's cost with the memo bypassed: through the
+    pulse_count kernel, profiled (device busy time per pair), and with the
+    kernel swapped for its plain version.  Both must equal the committed
+    (memoised) cost: wire bytes, skip, cells and pulses."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.pulse_count.ref import pulse_count_plain
+    from repro_torch.streaming import delta as delta_mod
+
+    def fresh(key):
+        saved = res._cost_cache.pop(key)
+        try:
+            return type(res)._cost(res, *key)
+        finally:
+            res._cost_cache[key] = saved
+
+    type(res)._cost(res, *pairs[0])        # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernel = [fresh(k) for k in pairs]
+        torch.cuda.synchronize()
+    with mock.patch.object(delta_mod, "pulse_count", pulse_count_plain):
+        plain = [fresh(k) for k in pairs]
+    committed = [res._cost_cache[k] for k in pairs]
+    if not kernel == plain == committed:
+        raise AssertionError(f"re-costed pairs {pairs}: kernel {kernel}, "
+                             f"plain {plain}, committed {committed}")
+    return committed, _device_busy_s(prof) / len(pairs)
+
+
+def install_episodes(steps):
+    """Lengths, in steps, of the runs of consecutive steps that carried
+    install work."""
+    runs, n = [], 0
+    for s in steps:
+        if s.install_work_bytes or s.install_wire_bytes:
+            n += 1
+        elif n:
+            runs.append(n)
+            n = 0
+    return runs + ([n] if n else [])
+
+
+def two_tenants(torch, cfg, base, decode_wall_ms):
+    """Two gemma-7b tenants at full width, tenant-b a perturbation of
+    tenant-a: first every layer resident (2 x n_layers slots, nothing
+    switches), then through an arena of n_layers + 1 slots with reuse on
+    and the install pipeline overlapped with decode (one tick per step, a
+    tick the bytes one decode step's wall could move at the measured
+    host-to-device rate).  The greedy tokens of the two runs must be
+    equal, and three committed cross-tenant pairs must cost the same
+    through the plain pulse_count."""
+    from repro_torch.serving import InstallCostModel, format_summary
+    t0 = time.perf_counter()
+    variant = perturb_on_device(torch, base)
+    torch.cuda.synchronize()
+    log(f"tenant-b: perturbed_variant's formula (scale 0.02, seed 1) over "
+        f"tenant-a's leaves, its normals drawn on the card from a "
+        f"torch.Generator, not numpy's stream, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tenants = {"tenant-a": base, "tenant-b": variant}
+    requests = two_tenant_requests(cfg)
+
+    eng, summary, want, t_build, t_serve, _, _ = two_tenant_run(
+        torch, cfg, tenants, 2 * cfg.n_layers, requests)
+    log(f"two tenants, all resident ({2 * cfg.n_layers} slots): store of "
+        f"{len(eng.residency.store.layers)} layers built in {t_build:.2f} s; "
+        f"{int(summary['tokens_generated'])} tokens in {t_serve:.3f} s, "
+        f"{int(summary['steps'])} steps, {int(summary['installs'])} "
+        f"installs ({int(summary['cold_installs'])} cold)")
+    # the instrumented residency and its engine form a cycle: collect it,
+    # so this store's pinned host memory is free before the next is built
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    h2d, _ = measure_h2d(torch, LAYER_CODES)
+    per_tick = int(h2d * decode_wall_ms / 1e3)
+    log(f"install tick: {per_tick / 1e6:.1f} MB = host-to-device "
+        f"{h2d / 1e9:.2f} GB/s (measured) x the decode step's "
+        f"{decode_wall_ms:.2f} ms wall (phase 4), one tick per step")
+    slots = cfg.n_layers + 1
+    eng, summary, got, t_build, t_serve, launches, (misses, commits) = \
+        two_tenant_run(torch, cfg, tenants, slots, requests,
+                       install_ticks_per_step=1, overlap_installs=True,
+                       install_cost=InstallCostModel(bytes_per_tick=per_tick))
+    res = eng.residency
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if got != want:
+        raise AssertionError("two tenants: tokens through the "
+                             f"{slots}-slot arena differ from the all-"
+                             f"resident run's: {got} vs {want}")
+    cross = [(o, l, st) for o, l, st in commits
+             if o is not None and res.model_of[o] != res.model_of[l]]
+    directions = {(res.model_of[o], res.model_of[l]) for o, l, _ in cross}
+    if directions != {("tenant-a", "tenant-b"), ("tenant-b", "tenant-a")}:
+        raise AssertionError(f"two tenants: cross-tenant installs went "
+                             f"{directions}, want both directions")
+    log(format_summary(summary))
+    tokens = int(summary["tokens_generated"])
+    log(f"two tenants, {slots} slots, reuse on, overlapped pipeline: store "
+        f"built in {t_build:.2f} s; {tokens} tokens in {t_serve:.3f} s = "
+        f"{tokens / t_serve:.1f} tok/s, {int(summary['steps'])} steps; "
+        f"peak memory {peak:.2f} GiB; launches {json.dumps(launches)}")
+    log(f"residency: {int(summary['installs'])} installs "
+        f"({int(summary['cold_installs'])} cold, "
+        f"{int(summary['cross_tenant_installs'])} cross-tenant), raw "
+        f"{summary['install_raw_bytes'] / 1e6:.1f} MB, wire "
+        f"{summary['install_wire_bytes'] / 1e6:.1f} MB, savings "
+        f"{summary['install_savings']:.4f}, mean skip "
+        f"{summary['install_mean_skip']:.4f}, cell flips "
+        f"{int(summary['install_cell_flips']):,}, write pulses "
+        f"{int(summary['install_write_pulses']):,}; stall steps "
+        f"{int(summary['install_stall_steps'])}, install work in "
+        f"{sum(install_episodes(eng.metrics.steps))} steps (runs "
+        f"{install_episodes(eng.metrics.steps)}), hidden "
+        f"{summary['overlap_hidden_bytes'] / 1e6:.1f} of "
+        f"{summary['install_work_bytes'] / 1e6:.1f} MB")
+    kind = {}
+    for occupant, layer, step, host_s, dev_s in misses:
+        key = ("cold" if occupant is None else
+               f"{res.model_of[occupant]}->{res.model_of[layer]}")
+        n, h, d, at = kind.get(key, (0, 0.0, 0.0, {}))
+        at[step] = at.get(step, 0) + 1
+        kind[key] = (n + 1, h + host_s, d + dev_s, at)
+    for key, (n, h, d, at) in sorted(kind.items()):
+        log(f"accounting {key}: {n} pair costs (pulse_count launches), "
+            f"host wall {h:.2f} s, device span {d:.2f} s; costs by step "
+            f"{json.dumps(at)}")
+    switch_steps = {}
+    for o, l, st in cross:
+        switch_steps.setdefault((res.model_of[o], res.model_of[l]),
+                                []).append(st)
+    log(f"cross-tenant installs by direction, steps: " + "; ".join(
+        f"{a}->{b} {len(v)} in steps {v[0]}-{v[-1]}"
+        for (a, b), v in sorted(switch_steps.items())))
+    pairs = list(dict.fromkeys(c[:2] for c in cross))   # distinct, in order
+    picks = [pairs[0], pairs[len(pairs) // 2], pairs[-1]]
+    costs, busy = recost_pairs(torch, res, picks)
+    log(f"re-costed pairs {picks} (store layers): kernel = plain = "
+        f"committed {costs}; device busy {busy * 1e3:.2f} ms a pair "
+        f"(profiled)")
+    for key in ("tenant-a->tenant-b", "tenant-b->tenant-a"):
+        first = min(kind[key][3])
+        mine = [m for m in misses if m[2] == first and m[0] is not None
+                and f"{res.model_of[m[0]]}->{res.model_of[m[1]]}" == key]
+        log(f"first switch {key}: {len(mine)} pair costs in step {first}, "
+            f"host wall {sum(m[3] for m in mine):.2f} s, device span "
+            f"{sum(m[4] for m in mine):.2f} s, device busy "
+            f"~{len(mine) * busy:.2f} s ({len(mine)} x the profiled pair)")
+    del eng, res
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -837,6 +1174,10 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    # f32 products in full f32 (PyTorch's default, stated): the plain
+    # versions the f32 kernels are held against at 3e-4 must not run in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -856,6 +1197,10 @@ def main() -> int:
         if not any(sass[name].values()):
             raise AssertionError(f"{name}: no tensor-core instruction in its "
                                  f"library")
+    for name in ("paged_attention_f32", "flash_attention_f32"):
+        if any(sass[name].values()):     # TF32 would not hold 3e-4
+            raise AssertionError(f"{name}: tensor-core instructions in an "
+                                 f"f32 library: {sass[name]}")
 
     # phase 2: kernels against their plain versions
     paged = {}
@@ -907,6 +1252,41 @@ def main() -> int:
         log(f"flash_attention B{B} S{S} H16 D256 causal: err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
             f"kernel/sdpa {ms / lib_ms:.2f}), bound {b:.4f} ms by {by}")
+    # f32: the CUDA-core kernels, at F32_TOL
+    f32 = torch.float32
+    paged32, errs32 = {}, {"paged": [], "flash": []}
+    for label in (PAGED_F32_MAIN, "B8 Hkv4 G4 D128 page16 T64"):
+        paged32[label] = check_paged(torch, **PAGED_TIMED[label], dtype=f32)
+        err, ms, plain_ms, sdpa_ms, (b, by), warm_ms = paged32[label]
+        errs32["paged"].append(err)
+        log(f"paged_attention f32 {label}: err {err:.3g}, {ms:.4f} ms cold, "
+            f"{warm_ms:.4f} ms back to back (plain {plain_ms:.4f} ms, sdpa "
+            f"over pre-gathered K/V {sdpa_ms:.4f} ms cold), bound {b:.4f} "
+            f"ms by {by}, kernel/bound {ms / b:.2f}")
+    for D, (H, Hkv), page, T in PAGED_UNTIMED[:4] + PAGED_UNTIMED[-3:]:
+        err = check_paged(torch, B=8, H=H, Hkv=Hkv, D=D, page=page, T=T,
+                          seed=D * 31 + H, timed=False, dtype=f32)[0]
+        errs32["paged"].append(err)
+        log(f"paged_attention f32 B8 H{H} Hkv{Hkv} G{H // Hkv} D{D} "
+            f"page{page} T{T}: err {err:.3g}")
+    for D in (8, 24, 80, 256):
+        for causal in (True, False):
+            err = check_flash(torch, S=200, H=4, D=D, seed=D + causal,
+                              Hkv=2, B=2, causal=causal, timed=False,
+                              dtype=f32)[0]
+            errs32["flash"].append(err)
+            log(f"flash_attention f32 B2 S200 H4 Hkv2 D{D} "
+                f"{'causal' if causal else 'full'} (GQA, ragged): err "
+                f"{err:.3g}")
+    flash32 = {}
+    for Hkv in (16, 4):
+        flash32[Hkv] = check_flash(torch, S=512, H=16, D=256, seed=512 + Hkv,
+                                   Hkv=Hkv, dtype=f32)
+        err, ms, plain_ms, lib_ms, (b, by) = flash32[Hkv]
+        errs32["flash"].append(err)
+        log(f"flash_attention f32 B1 S512 H16 Hkv{Hkv} D256 causal: err "
+            f"{err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+            f"{lib_ms:.4f} ms), bound {b:.4f} ms by {by}")
     delta = {}
     pulses = {}
     for n in (LAYER_CODES, 70_001):
@@ -962,7 +1342,7 @@ def main() -> int:
     if not max(pre_err, dec_err) <= LOGIT_TOL * scale:
         raise AssertionError("first-step logits: kernels and plain versions "
                              "differ beyond the tolerance")
-    profile_decode(torch, cfg, params, arena)
+    decode_wall_ms = profile_decode(torch, cfg, params, arena)
     profile_prefill(torch, cfg, params, max((p for p, _, _ in requests),
                                             key=len))
     del arena
@@ -996,8 +1376,13 @@ def main() -> int:
                                                             zp_w, sc)):
         log(f"  crossbar_mvm call: {t:.4f} ms  {name[:80]}")
     x_launches = crossbar_path(torch, x_codes, zp_x, mats, crossbar_mvm)
+    del ex, batch, s_logits, resident, x_codes, mats, w
+    torch.cuda.empty_cache()
 
-    # phase 6: report
+    # phase 6: two tenants through an ARAS weight arena at full width
+    t_launches = two_tenants(torch, cfg, params, decode_wall_ms)
+
+    # phase 7: report
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1007,7 +1392,9 @@ def main() -> int:
          "max_abs_err": max(r[0] for r in paged.values()),
          "ms": paged[PAGED_MAIN][1], "plain_ms": paged[PAGED_MAIN][2],
          "bound_ms": paged[PAGED_MAIN][4][0],
-         "bound_by": paged[PAGED_MAIN][4][1], "library_ms": None},
+         "bound_by": paged[PAGED_MAIN][4][1], "library_ms": None,
+         "two_tenant_launches": t_launches["paged_attention"],
+         **f32_fields(errs32["paged"], paged32[PAGED_F32_MAIN], None)},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
@@ -1016,7 +1403,9 @@ def main() -> int:
          "max_abs_err": max(f[0] for f in flash.values()),
          "ms": flash[1, 512][1], "plain_ms": flash[1, 512][2],
          "bound_ms": flash[1, 512][4][0], "bound_by": flash[1, 512][4][1],
-         "library_ms": flash[1, 512][3]},
+         "library_ms": flash[1, 512][3],
+         "two_tenant_launches": t_launches["flash_attention"],
+         **f32_fields(errs32["flash"], flash32[16], flash32[16][3])},
         {"name": "delta_apply", "route": "cuda",
          "source": "src/repro_torch/kernels/delta_apply/csrc/delta_apply.cu",
          "replaces": "src/repro/kernels/delta_apply/kernel.py:21",
@@ -1033,7 +1422,8 @@ def main() -> int:
          "max_abs_err": max(pulses[n][0] for n in pulses),
          "ms": pulses[LAYER_CODES][2], "plain_ms": pulses[LAYER_CODES][3],
          "bound_ms": pulses[LAYER_CODES][4][0],
-         "bound_by": pulses[LAYER_CODES][4][1], "library_ms": None},
+         "bound_by": pulses[LAYER_CODES][4][1], "library_ms": None,
+         "two_tenant_launches": t_launches["pulse_count"]},
         {"name": "crossbar_mvm", "route": "cuda",
          "source": "src/repro_torch/kernels/crossbar_mvm/csrc/"
                    "crossbar_mvm.cu",

@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one `.cu` file with a plain C interface under
-`repro_torch/kernels/<name>/csrc/<name>.cu`; the TMA/wgmma kernels also
-include the shared `repro_torch/kernels/hopper.cuh`.  It is compiled with
+Each kernel library is one `.cu` file with a plain C interface under
+`repro_torch/kernels/<package>/csrc/<name>.cu`: the package of the same
+name, or for the f32 attention kernels (`<package>_f32`) the package of
+their bf16 counterparts.  The TMA/wgmma kernels also include the shared
+`repro_torch/kernels/hopper.cuh`.  It is compiled with
 `nvcc` for `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the
 repository root (the hash is over the source, the shared headers and the
 flags, so an edited source or header rebuilds) and loaded with `ctypes`.
@@ -24,14 +26,15 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-NAMES = ("paged_attention", "flash_attention", "delta_apply", "pulse_count",
-         "crossbar_mvm")
+NAMES = ("paged_attention", "paged_attention_f32", "flash_attention",
+         "flash_attention_f32", "delta_apply", "pulse_count", "crossbar_mvm")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def source(name: str) -> Path:
-    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    package = name.removesuffix("_f32")
+    return KERNELS_DIR / package / "csrc" / f"{name}.cu"
 
 
 def _nvcc() -> str:

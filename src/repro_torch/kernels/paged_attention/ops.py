@@ -2,10 +2,13 @@
 head (GQA stays native — no pool expansion).
 
 A CPU tensor goes to the plain PyTorch version (`ref.py`); a CUDA tensor
-launches the hand-written split-row kernel (`csrc/paged_attention.cu`) or
-raises.  One call is one launch: the last split of a row to finish merges
-the row's splits, so there is no second kernel.
-`paged_attention.launches` counts kernel launches and nothing else.
+launches a hand-written kernel or raises: bf16 the split-row tensor-core
+kernel (`csrc/paged_attention.cu`), f32 the CUDA-core kernel
+(`csrc/paged_attention_f32.cu`, full f32 products: TF32 would not hold
+the reference's 3e-4).  One call is one launch: the last split of a bf16
+row to finish merges the row's splits, so there is no second kernel.
+`paged_attention.launches` counts kernel launches, of either kernel, and
+nothing else.
 """
 import ctypes
 import functools
@@ -27,6 +30,29 @@ def check_contract(head_dim: int, group: int) -> None:
     if not 1 <= group <= 16:
         raise ValueError(f"paged_attention kernel takes 1 to 16 query heads "
                          f"per KV head; got {group}")
+
+
+def kernel_for(q, k_pool, v_pool) -> str:
+    """The kernel library that takes these inputs: "paged_attention" for
+    bf16 q and pools, "paged_attention_f32" for f32.  Raises ValueError on
+    any other dtype or a mix."""
+    dtypes = {q.dtype, k_pool.dtype, v_pool.dtype}
+    if dtypes == {torch.bfloat16}:
+        return "paged_attention"
+    if dtypes == {torch.float32}:
+        return "paged_attention_f32"
+    raise ValueError(
+        f"paged_attention kernels take bf16 or f32 q and pools of one "
+        f"dtype; got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+
+
+@functools.cache
+def _bind_f32():
+    fn = build.load("paged_attention_f32").paged_attention_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
@@ -82,10 +108,7 @@ def _launch(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
     B, H, D = q.shape
     P, page, Hkv, _ = k_pool.shape
     T = tables.shape[1]
-    if not q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16:
-        raise ValueError(
-            f"paged_attention kernel takes bf16 q and pools; got "
-            f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    library = kernel_for(q, k_pool, v_pool)
     check_contract(D, H // Hkv)
     if T < 1:
         raise ValueError("paged_attention: the page table has no column")
@@ -100,9 +123,20 @@ def _launch(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
     if B == 0:
         return out
     G = H // Hkv
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if library == "paged_attention_f32":
+        with torch.cuda.device(q.device):
+            err = _bind_f32()(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                B, Hkv, G, D, page, T, 1.0 / math.sqrt(D), stream)
+        if err != 0:
+            raise RuntimeError(f"paged_attention f32 kernel launch failed: "
+                               f"cudaError {err}")
+        paged_attention.launches += 1
+        return out
     n_split, chunk_pages, n_part, n_part_ml, n_tickets = split_plan(
         T, page, B * Hkv, G, D, q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = [0, 0, 0]
     if n_split > 1:
         part = torch.empty(n_part, dtype=torch.float32, device=q.device)

@@ -1,18 +1,27 @@
-"""Continuous-batching serving engine — PyTorch port of
-`repro.serving.engine` for the paged KV layout.
+"""Continuous-batching serving engine with an ARAS-style multi-model
+weight arena — PyTorch port of `repro.serving.engine` for the paged KV
+layout.
 
-Every tenant's weights stay resident on the device.  Each step admits up
-to `max_prefill_per_step` queued requests (a monolithic prefill into a
-page-multiple bucket, whose pages are then installed into the tenant's
-`PagedKVArena`; the prefill's logits give the first token), then decodes
-one token for every running row of each tenant in one batched paged
-decode step, sampling on the device (fused) or right after it (split).
-Finished requests donate their pages to the radix prefix cache when the
-tenant has it on; a pool that runs dry mid-decode preempts the request,
-which re-prefills its prompt plus generated tokens on readmission.
+Each step picks the tenants that run (all tenants with demand when their
+layers fit the weight arena together, else one tenant per turn of
+`model_turn_steps` steps), makes their weights resident — at once
+(`WeightResidencyManager.ensure`) or through the budgeted install pipeline
+that can overlap the next tenant's installs with the current one's last
+decode steps — then admits up to `max_prefill_per_step` queued requests of
+the resident tenants (a monolithic prefill into a page-multiple bucket,
+whose pages are then installed into the tenant's `PagedKVArena`; the
+prefill's logits give the first token), then decodes one token for every
+running row of each of them in one batched paged decode step, sampling on
+the device (fused) or right after it (split).  Finished requests donate
+their pages to the radix prefix cache when the tenant has it on; a pool
+that runs dry mid-decode preempts the request, which re-prefills its
+prompt plus generated tokens on readmission.
 
-For dense GQA tenants the greedy tokens match the reference engine's
-(`kernel_backend="xla"`) token for token on the CPU.
+The weight arena is an accounting model, as in the reference: every
+tenant's params stay on the device, and residency decides when a tenant
+runs, never what it computes.  For dense GQA tenants the greedy tokens,
+stall steps and install bytes match the reference engine's
+(`kernel_backend="xla"`) on the CPU.
 """
 from __future__ import annotations
 
@@ -32,9 +41,12 @@ from repro_torch.nn.config import ModelConfig
 from repro_torch.serving.metrics import EngineMetrics, StepRecord
 from repro_torch.serving.paging import PagedKVArena
 from repro_torch.serving.request import Request, RequestStatus
+from repro_torch.serving.residency import (InstallPipeline,
+                                           WeightResidencyManager)
 from repro_torch.serving.sampling import request_key, sample_token
 from repro_torch.serving.scheduler import SchedulerConfig, StepScheduler
 from repro_torch.serving.tracing import NULL_TRACER, Tracer
+from repro_torch.streaming.plan import InstallCostModel
 
 _log = logging.getLogger(__name__)
 
@@ -61,7 +73,12 @@ class EngineModel:
 class ServingEngine:
     def __init__(self, models: Sequence[EngineModel], *,
                  sched: SchedulerConfig = SchedulerConfig(),
+                 weight_arena_slots: Optional[int] = None,
+                 reuse: bool = True,
                  clock: Callable[[], float] = time.perf_counter,
+                 install_ticks_per_step: int = 0,
+                 overlap_installs: bool = False,
+                 install_cost: Optional[InstallCostModel] = None,
                  tracer: Optional[Tracer] = None,
                  fuse_sampling: bool = True,
                  device="cuda"):
@@ -87,10 +104,20 @@ class ServingEngine:
                 prefix_cache=m.prefix_cache,
                 prefix_cache_pages=m.prefix_cache_pages, device=self.device)
 
+        # The weight arena: every tenant's big tensors in one quantized
+        # store on the engine's device; the default arena holds every
+        # tenant's layers at once, so nothing ever switches
+        self.residency = WeightResidencyManager(
+            {m.name: (m.params, m.cfg) for m in models},
+            weight_arena_slots if weight_arena_slots is not None
+            else sum(m.cfg.n_layers for m in models),
+            reuse=reuse, device=self.device)
+
         # Structured tracing: NULL_TRACER (no-op) when disabled; a shared
         # Tracer otherwise, injected into the scheduler and the arenas so
         # resource decisions land in the same trace as the component spans
         self.tracer: Any = tracer if tracer is not None else NULL_TRACER
+        self.residency.tracer = self.tracer
         for arena in self.arenas.values():
             arena.tracer = self.tracer
             arena.allocator.tracer = self.tracer
@@ -102,6 +129,25 @@ class ServingEngine:
         self._next_rid = 0
         self._step_no = 0
         self._wall_s = 0.0   # cumulative time spent inside step()
+
+        # Install pipelining: install_ticks_per_step > 0 budgets weight-arena
+        # installs (one tick = install_cost.bytes_per_tick wire bytes per
+        # step, the DMA a step can hide); 0 keeps the instant ensure() at
+        # the turn boundary.  overlap_installs additionally prefetches the
+        # next turn holder's layers while the current one still decodes —
+        # free slots mid-turn, the holder's own slots behind the execution
+        # front on its final slice step.
+        self.install_cost = install_cost or InstallCostModel()
+        self._ticks_per_step = int(install_ticks_per_step)
+        self._overlap = bool(overlap_installs)
+        if self._overlap and self._ticks_per_step <= 0:
+            raise ValueError("overlap_installs needs install_ticks_per_step "
+                             "> 0 (unbudgeted installs have nothing to hide)")
+        self.pipeline: Optional[InstallPipeline] = (
+            InstallPipeline(self.residency, self.install_cost)
+            if self._ticks_per_step > 0 else None)
+        if self.pipeline is not None:
+            self.pipeline.tracer = self.tracer
 
     # ------------------------------------------------------------ intake
     def submit(self, model: str, prompt: Sequence[int],
@@ -265,19 +311,78 @@ class ServingEngine:
         return any(r.model == name and arena.can_admit(r.serving_prompt())
                    for r in self.scheduler.queue)
 
+    def _pump_installs(self, run_models, demand) -> tuple:
+        """Budgeted install path: grant this step's tick budget to the
+        install pipeline.  Returns (decodable tenants, wire bytes committed,
+        wire bytes of install stream processed)."""
+        decodable = [n for n in run_models if self.residency.is_resident(n)]
+        blocked = [n for n in run_models if n not in decodable]
+        for name in decodable:
+            self.residency.touch(name, self._step_no)
+        target = blocked[0] if blocked else None
+        if target is None and self._overlap:
+            # the turn schedule names the next tenant: prefetch its layers
+            # while the current holder still decodes
+            nxt = self.scheduler.peek_next_model(demand)
+            if (nxt is not None and nxt not in run_models
+                    and not self.residency.is_resident(nxt)):
+                target = nxt
+        if target is None:
+            return decodable, 0, 0
+        self.pipeline.begin(target, self._step_no)
+        pinned = set(decodable) | {target}
+        holder = self.scheduler.current_turn_model
+        if (self.scheduler.turn_ending and holder is not None
+                and holder != target and self._steal_ok(target)):
+            # the holder's final slice step: its slots free up behind the
+            # execution front, so installs may overwrite them mid-step —
+            # streaming/executor.py's per-layer overlap at the tenant scale
+            pinned.discard(holder)
+        wire, work = self.pipeline.pump(self._ticks_per_step, pinned,
+                                        self._step_no)
+        return decodable, wire, work
+
+    def _steal_ok(self, target: str) -> bool:
+        """Steal the ending turn holder's slots only when the prefetch
+        target can actually take the next turn: it already decodes, or the
+        global active budget leaves admission headroom even after this
+        step's prefills.  A queued-only target behind an exhausted budget
+        may drop out of demand next step — stealing for it would hand the
+        turn straight back to the tenant whose layers we just evicted."""
+        if self.arenas[target].active_slots():
+            return True
+        budget = self.scheduler.cfg.max_active
+        if budget is None:
+            return True
+        n_active = sum(len(a.active_slots()) for a in self.arenas.values())
+        return (n_active + self.scheduler.cfg.max_prefill_per_step) < budget
+
     def step(self) -> None:
-        """One engine step: admit+prefill queued requests of the tenants
-        with demand, then decode one token for every running row."""
+        """One engine step: pick the scheduled tenants (by demand — active
+        rows or admissible queued requests), make their weights resident
+        (instantly, or via the budgeted install pipeline), admit+prefill
+        their queued requests, then decode one token for every running
+        row."""
         now = self._clock()
         with self.tracer.span("schedule"):
             demand = [name for name in self.models
                       if self._can_progress(name)]
-            run_models = self.scheduler.pick_models(demand, None)
+            run_models = self.scheduler.pick_models(demand, self.residency)
+        wire = work = 0
+        with self.tracer.span("install"):
+            if self.pipeline is None:
+                for name in run_models:
+                    wire += self.residency.ensure(name, self._step_no,
+                                                  pinned=set(run_models))
+                decodable = list(run_models)
+            else:
+                decodable, wire, work = self._pump_installs(run_models,
+                                                            demand)
         with self.tracer.span("prefill"):
-            n_prefills, prefill_tokens = self._admit(set(run_models))
+            n_prefills, prefill_tokens = self._admit(set(decodable))
 
         n_decoded = sample_syncs = 0
-        for name in run_models:
+        for name in decodable:
             m = self.models[name]
             arena = self.arenas[name]
             # extend tables across page boundaries and COW shared pages
@@ -318,6 +423,13 @@ class ServingEngine:
                         self._finish(req)
 
         with self.tracer.span("bookkeep"):
+            tokens_out = n_decoded + n_prefills
+            stall = (bool(run_models) and len(decodable) < len(run_models)
+                     and tokens_out == 0 and prefill_tokens == 0)
+            if stall:
+                # the step produced nothing because the scheduled tenant sat
+                # waiting on installs — don't charge it a decode-slice step
+                self.scheduler.refund_turn_step()
             kv_used = sum(a.allocator.n_used for a in self.arenas.values())
             kv_total = sum(a.allocator.n_pages for a in self.arenas.values())
             cached = sum(a.allocator.tree.n_cached
@@ -326,15 +438,21 @@ class ServingEngine:
             self.tracer.counter("kv_used_pages", kv_used)
             self.tracer.counter("queue_depth", self.scheduler.queue_depth)
             self.tracer.counter("kv_free_pages", kv_total - kv_used)
+            self.tracer.counter("install_queue_depth",
+                                self.pipeline.queue_depth
+                                if self.pipeline is not None else 0)
         self.metrics.record_step(StepRecord(
             t=now,
             n_active=sum(len(a.active_slots()) for a in self.arenas.values()),
             queue_depth=self.scheduler.queue_depth,
             n_prefills=n_prefills,
             n_decoded=n_decoded,
-            install_wire_bytes=0,
+            install_wire_bytes=wire,
             kv_used_pages=kv_used,
             kv_total_pages=kv_total,
+            install_work_bytes=work,
+            overlap_hidden_bytes=work if tokens_out > 0 else 0,
+            install_stall=stall,
             prefill_tokens=prefill_tokens,
             prefix_cached_pages=cached,
             sample_syncs=sample_syncs,
@@ -354,8 +472,12 @@ class ServingEngine:
             if max_steps is not None and self._step_no >= max_steps:
                 break
             before = self.metrics.tokens_generated
+            ticks_before = self.pipeline.pumped_ticks if self.pipeline else 0
             self.step()
-            stall = 0 if self.metrics.tokens_generated != before else stall + 1
+            progressed = (self.metrics.tokens_generated != before
+                          or (self.pipeline is not None
+                              and self.pipeline.pumped_ticks != ticks_before))
+            stall = 0 if progressed else stall + 1
             if stall > 3:
                 raise RuntimeError(
                     "engine stalled: queued work but no admissible slots")
@@ -366,6 +488,7 @@ class ServingEngine:
         in-step time — counters are lifetime totals."""
         return self.metrics.summary(
             self._wall_s if wall_s is None else wall_s,
+            residency=self.residency.stats.as_dict(),
             rejected=self.scheduler.rejected,
             paging=self._paging_stats())
 

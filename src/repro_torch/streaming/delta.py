@@ -21,7 +21,7 @@ ratios equal the reference's bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -237,14 +237,33 @@ class QuantizedStore:
                     lw.offset = off
                     # Eq. 7: compensate through the zero point.
                     lw.zero_points = [zp + off for zp in lw.zero_points]
+        self._device_copies: Dict[int, torch.Tensor] = {}
         pin = self.device.type == "cuda"
         for lw, c in zip(self.layers, dev_codes):
             host = torch.empty(c.shape, dtype=torch.uint8, pin_memory=pin)
             lw.codes = host.copy_(c)
 
+    def drop_device_copies(self) -> None:
+        """Free the layer copies `_on_device` keeps (see there)."""
+        self._device_copies.clear()
+
     def _on_device(self, layer: Optional[int]) -> Optional[torch.Tensor]:
-        return None if layer is None else self.layers[layer].codes.to(
-            self.device)
+        """A layer's codes on the store's device.  The last two layers
+        copied stay there until `drop_device_copies`: a greedy that costs
+        one incoming layer against every occupant (or one occupant against
+        every incoming layer) copies the layer it holds fixed once.  Codes
+        never change after construction, so a kept copy is always
+        current."""
+        if layer is None:
+            return None
+        codes = self._device_copies.pop(layer, None)
+        if codes is None:
+            codes = self.layers[layer].codes.to(self.device,
+                                                non_blocking=True)
+        self._device_copies[layer] = codes          # most recent last
+        while len(self._device_copies) > 2:
+            self._device_copies.pop(next(iter(self._device_copies)))
+        return codes
 
     def install_cost(self, resident: Optional[int], incoming: int
                      ) -> Tuple[int, float]:

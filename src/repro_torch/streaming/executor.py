@@ -60,6 +60,30 @@ def _flatten_sorted(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     return [(path, tree)]
 
 
+def layer_blocks(params: Any, cfg: ModelConfig) -> List[Dict]:
+    """Each layer's block params, scanned segments unstacked into
+    individual layers (views of the stacked leaves)."""
+    blocks = []
+    for seg_params, (start, length, scanned) in zip(
+            params["stack"]["segments"], stack_plan(cfg)):
+        if scanned:
+            blocks.extend(tree_map(lambda a, i=i: a[i], seg_params)
+                          for i in range(length))
+        else:
+            blocks.append(seg_params)
+    return blocks
+
+
+def split_block(bp: Dict) -> Tuple[List[Tuple], List[torch.Tensor],
+                                   List[bool]]:
+    """(paths, leaves, is_quantized) of a block in jax's flatten order: the
+    big tensors (>= 2 dims, >= QUANT_MIN_SIZE elements) are quantized, the
+    rest stay in their dtype (the reference's `_split_block_params`)."""
+    paths, leaves = zip(*_flatten_sorted(bp))
+    flags = [l.ndim >= 2 and l.numel() >= QUANT_MIN_SIZE for l in leaves]
+    return list(paths), list(leaves), flags
+
+
 def _unflatten(paths: List[Tuple], leaves: List[Any]) -> Dict:
     out: Dict = {}
     for path, leaf in zip(paths, leaves):
@@ -89,14 +113,7 @@ class StreamingExecutor:
                  link: LinkModel = LinkModel(), plan_tokens: int = 1,
                  device="cuda"):
         dev = resolve_device(device)
-        blocks = []
-        for seg_params, (start, length, scanned) in zip(
-                params["stack"]["segments"], stack_plan(cfg)):
-            if scanned:
-                blocks.extend(tree_map(lambda a, i=i: a[i], seg_params)
-                              for i in range(length))
-            else:
-                blocks.append(seg_params)
+        blocks = layer_blocks(params, cfg)
         self.cfg = cfg
         self.device = dev
         self.n_layers = len(blocks)
@@ -105,10 +122,8 @@ class StreamingExecutor:
         self.paths, self.flags, self.small = [], [], []
         store_input = []
         for i, bp in enumerate(blocks):
-            paths, leaves = zip(*_flatten_sorted(bp))
-            flags = [l.ndim >= 2 and l.numel() >= QUANT_MIN_SIZE
-                     for l in leaves]
-            self.paths.append(list(paths))
+            paths, leaves, flags = split_block(bp)
+            self.paths.append(paths)
             self.flags.append(flags)
             self.small.append([l.to(dev) for l, f in zip(leaves, flags)
                                if not f])

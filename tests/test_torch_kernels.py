@@ -212,6 +212,32 @@ def test_flash_head_dim_padding_is_exact(d, width):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("ops", [paged_ops, flash_ops],
+                         ids=["paged", "flash"])
+def test_kernel_wrappers_take_bf16_and_f32(ops):
+    """Each attention wrapper takes what its Pallas kernel takes: bf16 goes
+    to the tensor-core kernel, f32 to the CUDA-core f32 kernel (TF32 would
+    not hold 3e-4); any other dtype, or a mix, raises before a launch."""
+    name = ops.__name__.split(".")[-2]
+    x = torch.zeros(2, 4, 8)
+    b = x.bfloat16()
+    assert ops.kernel_for(b, b, b) == name
+    assert ops.kernel_for(x, x, x) == f"{name}_f32"
+    for bad in ((x.half(), x.half(), x.half()), (x, b, b), (b, b, x),
+                (x.double(), x, x)):
+        with pytest.raises(ValueError, match="bf16 or f32"):
+            ops.kernel_for(*bad)
+
+
+def test_f32_kernel_sources_sit_beside_their_bf16_kernels():
+    """The build finds each f32 library's source in its kernel package."""
+    from repro_torch.kernels import build
+    for name in ("paged_attention", "flash_attention"):
+        assert name in build.NAMES and f"{name}_f32" in build.NAMES
+        assert build.source(f"{name}_f32").is_file()
+        assert build.source(f"{name}_f32").parent == build.source(name).parent
+
+
 def test_flash_kernel_contract_rejects_other_head_dims():
     for d in (12, 4, 264):
         with pytest.raises(ValueError, match="multiple of 8"):

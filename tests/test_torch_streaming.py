@@ -218,3 +218,41 @@ def test_serve_cli_defaults_match_the_reference():
     src/repro/launch/serve.py:215,220 (--batch 4, --arena-slots 3)."""
     args = serve._parser().parse_args(["--streaming"])
     assert (args.arena_slots, args.batch) == (3, 4)
+
+
+@pytest.mark.parametrize("flags", [[], ["--install-ticks-per-step", "1",
+                                        "--overlap-installs"]],
+                         ids=["instant", "overlap"])
+def test_engine_cli_serves_two_tenants_on_cpu(capsys, flags):
+    """`--engine` serves tenant-a and its perturbed variant tenant-b through
+    a weight arena of n_layers + 1 slots: requests alternate, and a switch
+    installs layers across tenants."""
+    args = serve._parser().parse_args(
+        ["--engine", "--smoke", "--device", "cpu", "--requests", "4",
+         "--prompt-len", "8", "--gen", "6", "--turn-steps", "2", *flags])
+    serve._run_engine(args)
+    out = capsys.readouterr().out
+    assert "4 requests across 2 models" in out
+    assert "weight arena 3 slots" in out and "finished 4 requests" in out
+    installs = [line for line in out.splitlines()
+                if line.startswith("weight installs:")]
+    assert installs and "(0 cross-tenant)" not in installs[0]
+    assert ("install pipeline:" in out) == bool(flags)
+
+
+def test_engine_cli_defaults_match_the_reference(monkeypatch):
+    """The engine flags' defaults are the reference parser's
+    (src/repro/launch/serve.py:221-243)."""
+    import sys
+    from repro.launch import serve as ref_serve
+    seen = {}
+    monkeypatch.setattr(ref_serve, "_run_engine",
+                        lambda args: seen.setdefault("args", args))
+    monkeypatch.setattr(sys, "argv", ["serve", "--engine"])
+    ref_serve.main()
+    want = vars(seen["args"])
+    got = vars(serve._parser().parse_args(["--engine"]))
+    for flag in ("weight_slots", "turn_steps", "install_ticks_per_step",
+                 "install_bytes_per_tick", "overlap_installs", "requests",
+                 "kv_slots", "page_size", "prompt_len", "gen", "arch"):
+        assert got[flag] == want[flag], flag
