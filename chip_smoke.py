@@ -7,18 +7,22 @@ Phases (any failure exits non-zero before the last line):
   1. print the card's name and power limit, build every CUDA kernel from
      the sources in this checkout (one nvcc per source, in parallel), and
      count the tensor-core instructions (wgmma HGMMA/IGMMA, mma.sync
-     HMMA/IMMA) in each library's SASS: crossbar_mvm and flash_attention
-     must have some, the f32 attention libraries none (no TF32);
+     HMMA/IMMA) in each library's SASS: crossbar_mvm, flash_attention and
+     flash_attention_f32 (split TF32) must have some, paged_attention_f32
+     (f32 FMAs) none;
   2. hold each kernel against its plain PyTorch version at the shapes its
      path gives it and at the shapes its design finds hard (paged: stale
      garbage past every row's position, G 1 to 16, head dims 8 to 256,
      rows of 8,192 tokens, timed cold; flash: every native head dim and
      the zero-padded ones, GQA up to G 16, ragged, causal and full, S 512
-     and 1000, the streaming B 4 x S 512; the f32 attention kernels at
-     3e-4 against plain versions whose products stay in full f32, at the
-     serve run's paged shape, a GQA one and S 512; delta_apply in place
-     and out of place; crossbar: ragged tiles, a K that is not a multiple
-     of 16 at M < 64), and time kernel, plain version and the PyTorch
+     and 1000, the streaming B 4 x S 512; the f32 attention kernels
+     against plain versions whose products stay in full f32, paged at 3e-4
+     (every untimed shape above, the long tables and their split plans;
+     the serve run's shape, G 4 and G 16 timed), flash at 3e-5, ten times
+     tighter, on inputs where one TF32 pass is shown to miss it;
+     delta_apply in place and out of place; crossbar: ragged tiles, a K
+     that is not a multiple of 16 at M < 64), and time kernel, plain
+     version and the PyTorch
      library call where one computes the same function;
   3. serve requests through the port's engine at gemma-7b's full width
      (28 layers, seeded random weights), counting kernel launches;
@@ -68,9 +72,14 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 CORE_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores,
                                # the bound taken for integer work on CUDA cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 LAYER_CODES = 276_824_064      # quantized weights of one gemma-7b layer
 KERNEL_TOL = 2e-2              # bf16 output: the reference's own tolerance
 F32_TOL = 3e-4                 # f32 output: the reference's own tolerance
+# f32 flash runs in split TF32 (three products per fragment), within ~4e-6
+# of full f32; one TF32 pass is ~1.6e-3 off at S 512 D 256.  So its checks
+# hold it ten times tighter than F32_TOL, where one pass fails.
+FLASH_F32_TOL = 3e-5
 # Logits after 28 bf16 layers: kernel and plain version round each layer's
 # attention output at different points (online vs two-pass softmax, f32 sums
 # in another order), which moves a few elements by one bf16 ulp (2**-8
@@ -114,8 +123,11 @@ PAGED_UNTIMED = [(D, heads, 8, 20)
 # the kernel's shared-memory window, a page of 1 and one of 12 (not a
 # divisor of the 32-token tile)
 PAGED_LONG_TABLES = [(8, (40, 40), 1, 3000), (16, (80, 40), 12, 700)]
-# paged decode in f32, timed and reported: the serve run's table
+# paged decode in f32, timed: the serve run's table (reported), G 4 and
+# qwen3-moe-235b's G 16
 PAGED_F32_MAIN = "gemma-7b serve-like B8 Hkv16 G1 D256 page16 T34"
+PAGED_F32_TIMED = (PAGED_F32_MAIN, "B8 Hkv4 G4 D128 page16 T64",
+                   "qwen3-moe-235b B8 H64 Hkv4 G16 D128 page16 T64")
 
 
 def f32_fields(errs, checked, library_ms):
@@ -247,28 +259,31 @@ def paged_inputs(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
     return q, k, v, tables, pos, pos_list
 
 
-def check_split_plan(torch):
-    """The kernel library's split plan, on this card's SM count: at most
-    32 splits that cover the table, chunks of whole 32-token tiles where
-    the page size allows, scratch sized to the splits; returns the plans
-    of PAGED_LONG_TABLES."""
+def check_split_plan(torch, library="paged_attention"):
+    """A kernel library's split plan (bf16 "paged_attention" or
+    "paged_attention_f32"), on this card's SM count: at most 32 splits
+    that cover the table, chunks of whole 32-token tiles where the page
+    size allows, scratch sized to the splits; returns the plans of
+    PAGED_LONG_TABLES."""
     from repro_torch.kernels.paged_attention.ops import split_plan
     dev = torch.device("cuda", 0)
     for T, page in ((1, 16), (6, 4), (34, 16), (64, 16), (300, 4),
                     (512, 16), (700, 12), (100_000, 1)):
         for rows in (1, 32, 128, 320, 4096):
             n, chunk, n_part, n_ml, n_tick = split_plan(T, page, rows, 8,
-                                                        128, dev)
+                                                        128, dev, library)
             ok = (1 <= n <= 32 and (n - 1) * chunk < T <= n * chunk
                   and (chunk == T or 32 % page or chunk * page % 32 == 0)
                   and (n_part, n_ml, n_tick) == (
                       (rows * n * 8 * 128, rows * n * 32, rows) if n > 1
                       else (0, 0, 0)))
             if not ok:
-                raise AssertionError(f"split plan T={T} page={page} "
-                                     f"rows={rows}: {n} x {chunk} pages, "
-                                     f"scratch {n_part}, {n_ml}, {n_tick}")
-    return {(page, T): split_plan(T, page, 8 * Hkv, H // Hkv, D, dev)[:2]
+                raise AssertionError(f"{library} split plan T={T} "
+                                     f"page={page} rows={rows}: {n} x "
+                                     f"{chunk} pages, scratch {n_part}, "
+                                     f"{n_ml}, {n_tick}")
+    return {(page, T): split_plan(T, page, 8 * Hkv, H // Hkv, D, dev,
+                                  library)[:2]
             for D, (H, Hkv), page, T in PAGED_LONG_TABLES}
 
 
@@ -332,10 +347,13 @@ def check_paged(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
 
 def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
                 timed=True, dtype=None):
-    """Kernel vs plain within KERNEL_TOL (F32_TOL for f32 inputs, the plain
-    version's products in full f32); when `timed`, also the kernel's output
-    identical over REPEATS runs, and the kernel's, the plain version's and
-    SDPA's times and the bound."""
+    """Kernel vs plain within KERNEL_TOL (FLASH_F32_TOL for f32 inputs, the
+    plain version's products in full f32); when `timed`, also the kernel's
+    output identical over REPEATS runs, and the kernel's, the plain
+    version's and SDPA's times and the bound.  For timed f32 inputs also a
+    dict: the error of the plain version in one TF32 pass (which must miss
+    FLASH_F32_TOL) and the bound on the CUDA cores beside the 3xTF32 one
+    returned (three TF32 passes of the tensor cores)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     import torch.nn.functional as F
@@ -343,7 +361,7 @@ def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
     g = torch.Generator(device=dev).manual_seed(seed)
     Hkv = Hkv or H
     dtype = dtype or torch.bfloat16
-    tol = F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    tol = FLASH_F32_TOL if dtype == torch.float32 else KERNEL_TOL
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
     k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
             for _ in range(2))
@@ -378,8 +396,25 @@ def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
     n_bytes = 2 * B * S * (H + Hkv) * D * q.element_size()
     pairs = S * (S + 1) // 2 if causal else S * S
     n_flops = 4 * B * D * H * pairs
-    rate = CORE_OPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
-    return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops, rate)
+    if dtype != torch.float32:
+        return (err, ms, plain_ms, lib_ms,
+                bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S))
+    # the limit discriminates: the plain version with its products in one
+    # TF32 pass misses it on these inputs
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = flash_attention_plain(q, k, v, causal=causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    one_pass_err = (one_pass - ref).abs().max().item()
+    if not one_pass_err > FLASH_F32_TOL:
+        raise AssertionError(f"one TF32 pass at S={S} D={D} is within "
+                             f"{FLASH_F32_TOL} ({one_pass_err}): the f32 "
+                             f"flash limit does not discriminate")
+    return (err, ms, plain_ms, lib_ms,
+            bound_ms(n_bytes, n_flops, TF32_FLOPS_PER_S / 3),
+            {"one_pass_tf32_err": one_pass_err,
+             "cuda_core_bound": bound_ms(n_bytes, n_flops, CORE_OPS_PER_S)})
 
 
 def _codes(torch, n, gen, dev):
@@ -1175,7 +1210,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     # f32 products in full f32 (PyTorch's default, stated): the plain
-    # versions the f32 kernels are held against at 3e-4 must not run in TF32
+    # versions the f32 kernels are held against must not run in TF32
+    # (check_flash turns TF32 on once, for the one-pass probe, and off)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1197,10 +1233,12 @@ def main() -> int:
         if not any(sass[name].values()):
             raise AssertionError(f"{name}: no tensor-core instruction in its "
                                  f"library")
-    for name in ("paged_attention_f32", "flash_attention_f32"):
-        if any(sass[name].values()):     # TF32 would not hold 3e-4
-            raise AssertionError(f"{name}: tensor-core instructions in an "
-                                 f"f32 library: {sass[name]}")
+    if not sass["flash_attention_f32"]["HMMA"]:   # split TF32 on mma.sync
+        raise AssertionError(f"flash_attention_f32: no HMMA in its library: "
+                             f"{sass['flash_attention_f32']}")
+    if any(sass["paged_attention_f32"].values()):  # full f32 FMAs only
+        raise AssertionError(f"paged_attention_f32: tensor-core instructions "
+                             f"in its library: {sass['paged_attention_f32']}")
 
     # phase 2: kernels against their plain versions
     paged = {}
@@ -1252,10 +1290,10 @@ def main() -> int:
         log(f"flash_attention B{B} S{S} H16 D256 causal: err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
             f"kernel/sdpa {ms / lib_ms:.2f}), bound {b:.4f} ms by {by}")
-    # f32: the CUDA-core kernels, at F32_TOL
+    # f32: paged at F32_TOL, flash at FLASH_F32_TOL
     f32 = torch.float32
     paged32, errs32 = {}, {"paged": [], "flash": []}
-    for label in (PAGED_F32_MAIN, "B8 Hkv4 G4 D128 page16 T64"):
+    for label in PAGED_F32_TIMED:
         paged32[label] = check_paged(torch, **PAGED_TIMED[label], dtype=f32)
         err, ms, plain_ms, sdpa_ms, (b, by), warm_ms = paged32[label]
         errs32["paged"].append(err)
@@ -1263,12 +1301,25 @@ def main() -> int:
             f"{warm_ms:.4f} ms back to back (plain {plain_ms:.4f} ms, sdpa "
             f"over pre-gathered K/V {sdpa_ms:.4f} ms cold), bound {b:.4f} "
             f"ms by {by}, kernel/bound {ms / b:.2f}")
-    for D, (H, Hkv), page, T in PAGED_UNTIMED[:4] + PAGED_UNTIMED[-3:]:
+    for D, (H, Hkv), page, T in PAGED_UNTIMED:
         err = check_paged(torch, B=8, H=H, Hkv=Hkv, D=D, page=page, T=T,
                           seed=D * 31 + H, timed=False, dtype=f32)[0]
         errs32["paged"].append(err)
         log(f"paged_attention f32 B8 H{H} Hkv{Hkv} G{H // Hkv} D{D} "
             f"page{page} T{T}: err {err:.3g}")
+    plans32 = check_split_plan(torch, "paged_attention_f32")
+    log(f"paged_attention f32 split plans of the long tables: {plans32}")
+    for D, (H, Hkv), page, T in PAGED_LONG_TABLES:
+        if plans32[page, T][1] <= 256:
+            raise AssertionError(f"f32 page{page} T{T}: the chunk of "
+                                 f"{plans32[page, T][1]} pages does not "
+                                 f"slide the page-id window")
+        err = check_paged(torch, B=8, H=H, Hkv=Hkv, D=D, page=page, T=T,
+                          seed=T + page, timed=False, dtype=f32)[0]
+        errs32["paged"].append(err)
+        log(f"paged_attention f32 B8 H{H} Hkv{Hkv} G{H // Hkv} D{D} "
+            f"page{page} T{T} (one split, sliding page-id window): err "
+            f"{err:.3g}")
     for D in (8, 24, 80, 256):
         for causal in (True, False):
             err = check_flash(torch, S=200, H=4, D=D, seed=D + causal,
@@ -1282,11 +1333,15 @@ def main() -> int:
     for Hkv in (16, 4):
         flash32[Hkv] = check_flash(torch, S=512, H=16, D=256, seed=512 + Hkv,
                                    Hkv=Hkv, dtype=f32)
-        err, ms, plain_ms, lib_ms, (b, by) = flash32[Hkv]
+        err, ms, plain_ms, lib_ms, (b, by), extra = flash32[Hkv]
         errs32["flash"].append(err)
+        cb, cby = extra["cuda_core_bound"]
         log(f"flash_attention f32 B1 S512 H16 Hkv{Hkv} D256 causal: err "
-            f"{err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
-            f"{lib_ms:.4f} ms), bound {b:.4f} ms by {by}")
+            f"{err:.3g} (one TF32 pass: {extra['one_pass_tf32_err']:.3g}), "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            f"kernel/sdpa {ms / lib_ms:.2f}), bound {b:.4f} ms by {by} as "
+            f"3xTF32 (kernel/bound {ms / b:.2f}), {cb:.4f} ms by {cby} on "
+            f"the CUDA cores")
     delta = {}
     pulses = {}
     for n in (LAYER_CODES, 70_001):
@@ -1394,7 +1449,8 @@ def main() -> int:
          "bound_ms": paged[PAGED_MAIN][4][0],
          "bound_by": paged[PAGED_MAIN][4][1], "library_ms": None,
          "two_tenant_launches": t_launches["paged_attention"],
-         **f32_fields(errs32["paged"], paged32[PAGED_F32_MAIN], None)},
+         **f32_fields(errs32["paged"], paged32[PAGED_F32_MAIN], None),
+         "f32_cold_ms_by_shape": {k: v[1] for k, v in paged32.items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
@@ -1405,7 +1461,9 @@ def main() -> int:
          "bound_ms": flash[1, 512][4][0], "bound_by": flash[1, 512][4][1],
          "library_ms": flash[1, 512][3],
          "two_tenant_launches": t_launches["flash_attention"],
-         **f32_fields(errs32["flash"], flash32[16], flash32[16][3])},
+         **f32_fields(errs32["flash"], flash32[16], flash32[16][3]),
+         "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
+         "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},
         {"name": "delta_apply", "route": "cuda",
          "source": "src/repro_torch/kernels/delta_apply/csrc/delta_apply.cu",
          "replaces": "src/repro/kernels/delta_apply/kernel.py:21",

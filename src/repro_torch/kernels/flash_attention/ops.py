@@ -3,10 +3,12 @@
 GQA-native: q (B, Sq, H, D) attends over k/v (B, Skv, Hkv, D) with query
 head h reading KV head h // (H / Hkv).  A CPU tensor goes to the plain
 PyTorch version (`ref.py`); a CUDA tensor launches a hand-written kernel
-or raises: bf16 the tensor-core kernel (`csrc/flash_attention.cu`), f32
-the CUDA-core kernel (`csrc/flash_attention_f32.cu`, full f32 products:
-TF32 would not hold the reference's 3e-4).  `flash_attention.launches`
-counts kernel launches, of either kernel, and nothing else.
+or raises: bf16 the `wgmma` kernel (`csrc/flash_attention.cu`), f32 the
+split-TF32 kernel (`csrc/flash_attention_f32.cu`: each f32 operand split
+into a TF32 hi and lo, three `mma.sync` products per fragment, f32 sums;
+one TF32 pass would not hold the reference's 3e-4).
+`flash_attention.launches` counts kernel launches, of either kernel, and
+nothing else.
 
 The bf16 kernel is built for head dims 32, 64, 128 and 256.  Any other
 multiple of 8 up to 256 is zero-padded along D to the next of those: zero

@@ -2,11 +2,12 @@
 head (GQA stays native — no pool expansion).
 
 A CPU tensor goes to the plain PyTorch version (`ref.py`); a CUDA tensor
-launches a hand-written kernel or raises: bf16 the split-row tensor-core
+launches a hand-written split-row kernel or raises: bf16 the tensor-core
 kernel (`csrc/paged_attention.cu`), f32 the CUDA-core kernel
-(`csrc/paged_attention_f32.cu`, full f32 products: TF32 would not hold
-the reference's 3e-4).  One call is one launch: the last split of a bf16
-row to finish merges the row's splits, so there is no second kernel.
+(`csrc/paged_attention_f32.cu`, full f32 products on the same split-row
+layout with its own split plan: decode is bytes-bound, so f32 FMAs keep
+up with the memory).  One call is one launch: the last split of a row to
+finish merges the row's splits, so there is no second kernel.
 `paged_attention.launches` counts kernel launches, of either kernel, and
 nothing else.
 """
@@ -46,41 +47,43 @@ def kernel_for(q, k_pool, v_pool) -> str:
         f"dtype; got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
 
 
-@functools.cache
-def _bind_f32():
-    fn = build.load("paged_attention_f32").paged_attention_f32
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+# each library's (kernel, split planner) symbols
+_SYMBOLS = {
+    "paged_attention": ("paged_attention_bf16", "paged_attention_plan"),
+    "paged_attention_f32": ("paged_attention_f32", "paged_attention_f32_plan"),
+}
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("paged_attention")
-    lib.paged_attention_bf16.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.paged_attention_bf16.restype = ctypes.c_int
-    lib.paged_attention_plan.argtypes = (
-        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)])
-    lib.paged_attention_plan.restype = ctypes.c_int
-    return lib
+def _lib(library: str = "paged_attention"):
+    """The library's (kernel, planner) functions, bound.  Both kernels
+    take the same arguments."""
+    kernel_sym, plan_sym = _SYMBOLS[library]
+    lib = build.load(library)
+    kernel, plan = getattr(lib, kernel_sym), getattr(lib, plan_sym)
+    kernel.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+    kernel.restype = ctypes.c_int
+    plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    plan.restype = ctypes.c_int
+    return kernel, plan
 
 
 @functools.cache
 def split_plan(table_width: int, page: int, rows: int, group: int,
-               head_dim: int, device: torch.device) -> Tuple[int, ...]:
+               head_dim: int, device: torch.device,
+               library: str = "paged_attention") -> Tuple[int, ...]:
     """(splits, pages per split, f32 elements of the two merge scratch
     buffers, tickets) of a call over `rows` (row, KV head) pairs whose
     table holds `table_width` pages, as the kernel library plans it
-    (`paged_attention_plan` in the source) for the device's SM count.
-    From the shapes only, never from the positions, which live on the
-    device."""
+    (`paged_attention_plan`, or `paged_attention_f32_plan` for
+    library "paged_attention_f32", in the sources) for the device's SM
+    count.  From the shapes only, never from the positions, which live on
+    the device."""
     plan = (ctypes.c_longlong * 5)()
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    err = _lib().paged_attention_plan(table_width, page, rows, group,
-                                      head_dim, n_sms, plan)
+    err = _lib(library)[1](table_width, page, rows, group, head_dim, n_sms,
+                           plan)
     if err != 0:
         raise ValueError(f"paged_attention: no split plan for T "
                          f"{table_width}, page {page}, {rows} rows "
@@ -124,19 +127,8 @@ def _launch(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
         return out
     G = H // Hkv
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if library == "paged_attention_f32":
-        with torch.cuda.device(q.device):
-            err = _bind_f32()(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                B, Hkv, G, D, page, T, 1.0 / math.sqrt(D), stream)
-        if err != 0:
-            raise RuntimeError(f"paged_attention f32 kernel launch failed: "
-                               f"cudaError {err}")
-        paged_attention.launches += 1
-        return out
     n_split, chunk_pages, n_part, n_part_ml, n_tickets = split_plan(
-        T, page, B * Hkv, G, D, q.device)
+        T, page, B * Hkv, G, D, q.device, library)
     scratch = [0, 0, 0]
     if n_split > 1:
         part = torch.empty(n_part, dtype=torch.float32, device=q.device)
@@ -145,7 +137,7 @@ def _launch(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
         scratch = [part.data_ptr(), part_ml.data_ptr(),
                    _counters(q.device, stream, n_tickets).data_ptr()]
     with torch.cuda.device(q.device):
-        err = _lib().paged_attention_bf16(
+        err = _lib(library)[0](
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(), *scratch,
             B, Hkv, G, D, page, T, n_split, chunk_pages,

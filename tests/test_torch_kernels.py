@@ -216,8 +216,10 @@ def test_flash_head_dim_padding_is_exact(d, width):
                          ids=["paged", "flash"])
 def test_kernel_wrappers_take_bf16_and_f32(ops):
     """Each attention wrapper takes what its Pallas kernel takes: bf16 goes
-    to the tensor-core kernel, f32 to the CUDA-core f32 kernel (TF32 would
-    not hold 3e-4); any other dtype, or a mix, raises before a launch."""
+    to the bf16 kernel, f32 to the f32 kernel (paged: full f32 FMAs;
+    flash: split TF32, three tensor-core products per fragment, since one
+    TF32 pass would not hold 3e-4); any other dtype, or a mix, raises
+    before a launch."""
     name = ops.__name__.split(".")[-2]
     x = torch.zeros(2, 4, 8)
     b = x.bfloat16()
@@ -227,6 +229,62 @@ def test_kernel_wrappers_take_bf16_and_f32(ops):
                 (x.double(), x, x)):
         with pytest.raises(ValueError, match="bf16 or f32"):
             ops.kernel_for(*bad)
+
+
+def _tf32(x: np.ndarray, rounded: bool = True) -> np.ndarray:
+    """f32 `x` in TF32: rounded to nearest, ties away from zero, as
+    cvt.rna.tf32.f32 rounds (add 0x1000 to the bit pattern, clear the low
+    13 bits), or, with rounded False, cut to its top 19 bits, as the
+    tensor core reads an f32 register."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if rounded:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+    """a @ b as the f32 flash kernel takes it (passes 3: hi = x rounded to
+    TF32, lo = x - hi as the tensor core reads it, a_lo·b_hi + a_hi·b_lo +
+    a_hi·b_hi), or in one TF32 pass (passes 1); exact products, f32
+    result."""
+    f64 = lambda x: x.astype(np.float64)  # noqa: E731
+    ah, bh = _tf32(a), _tf32(b)
+    out = f64(ah) @ f64(bh)
+    if passes == 3:
+        al, bl = _tf32(a - ah, rounded=False), _tf32(b - bh, rounded=False)
+        out = f64(al) @ f64(bh) + f64(ah) @ f64(bl) + out
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "1xtf32"])
+@pytest.mark.parametrize("s,d,h,hkv", [(64, 32, 2, 2), (96, 80, 4, 2),
+                                       (48, 128, 3, 1)])
+def test_flash_f32_kernel_needs_split_tf32(s, d, h, hkv, passes):
+    """Causal f32 attention with both products (Q·Kᵀ, P·V) taken as the
+    f32 flash kernel takes them, against `flash_attention_plain` in full
+    f32: three split-TF32 passes stay within 3e-5 (the limit
+    `chip_smoke.py` holds the kernel to); one TF32 pass misses the
+    reference's 3e-4.  That is why the kernel splits."""
+    rng = np.random.default_rng(s + d)
+    q = rng.standard_normal((1, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    want = flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal=True).numpy()
+    got = np.empty_like(want)
+    causal = np.tril(np.ones((s, s), bool))
+    for head in range(h):
+        kv = head // (h // hkv)
+        scores = _tf32_product(q[0, :, head], k[0, :, kv].T, passes)
+        scores = np.where(causal, scores / np.float32(np.sqrt(d)), -1e30)
+        p = np.exp(scores - scores.max(-1, keepdims=True))
+        p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+        got[0, :, head] = _tf32_product(p, v[0, :, kv], passes)
+    err = np.abs(got - want).max()
+    if passes == 3:
+        assert err <= 3e-5
+    else:
+        assert err > 3e-4
 
 
 def test_f32_kernel_sources_sit_beside_their_bf16_kernels():
