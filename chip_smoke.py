@@ -45,7 +45,16 @@ Phases (any failure exits non-zero before the last line):
      greedy tokens of the two runs must be equal, and three committed
      cross-tenant pair costs must equal their recomputation through the
      plain pulse_count;
-  7. print the `kernels` JSON line, then the result line.
+  7. chunked prefill at gemma-7b's full width: phase 3's requests through
+     the engine with chunks of 256 under a 512-token step budget and the
+     prefix cache on (no flash launch, 28 paged launches a decode batch;
+     each chunk's shape and wall time, TTFT, greedy agreement with phase
+     3), the longest prompt's last-chunk logits against the monolithic
+     prefill's, a profiled chunk step; then four requests over one
+     1,024-token shared prefix, the first run alone, warm (prefix cache
+     on) and cold (off): 3 x 1,024 hit tokens warm, 0 cold, prompt
+     tokens computed 3 x 1,024 apart, the same greedy tokens;
+  8. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -584,8 +593,9 @@ def serve(torch, cfg, params, requests, page):
         f"{decode_batches} decode batches, {prefills} prefills; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"launches in the serve run: {json.dumps(launches)}")
+    tokens = {r.rid: list(r.generated) for r in reqs}
     del eng
-    return launches
+    return launches, tokens
 
 
 # ------------------------------------------------------------ phase 4
@@ -1196,6 +1206,229 @@ def two_tenants(torch, cfg, base, decode_wall_ms):
     return launches
 
 
+# ------------------------------------------------------------ phase 7
+CHUNK = 256                    # --prefill-chunk of the chunked arm
+CHUNK_BUDGET = 512             # --prefill-token-budget of the chunked arm
+SHARED_PREFIX = 1024           # the prefix-cache arm's shared prompt head
+
+
+def chunked_engine(torch, cfg, params, max_seq, n_pages, prefix_cache):
+    """One tenant, 8 decode rows, page 16, chunks of CHUNK under a
+    CHUNK_BUDGET-token step budget; its weights installed (set-up)."""
+    from repro_torch.serving import (EngineModel, SchedulerConfig,
+                                     ServingEngine)
+    eng = ServingEngine(
+        [EngineModel("gemma-7b", params, cfg, kv_slots=8, max_seq=max_seq,
+                     page_size=16, n_pages=n_pages,
+                     prefix_cache=prefix_cache)],
+        sched=SchedulerConfig(max_prefill_per_step=4,
+                              prefill_token_budget=CHUNK_BUDGET),
+        prefill_chunk=CHUNK, device="cuda")
+    eng.residency.ensure("gemma-7b", 0)       # set-up, as in phase 3
+    torch.cuda.synchronize()
+    return eng
+
+
+def run_chunked(torch, cfg, eng, submit):
+    """Run `submit(eng, reqs)`, which submits into `reqs` and drives `eng`,
+    with the launch counts set to 0 just before; every chunk step is timed
+    on the host (synchronized at both ends).  Returns (requests, launches,
+    chunks, decode batches, wall s) with chunks as (chunk_len,
+    staging_len, start, n_valid, ms)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.serving import engine as engine_mod
+    chunks = []
+    cached = engine_mod.cached_chunk_prefill_step
+
+    def timed(cfg_, chunk_len, staging_len):
+        step = cached(cfg_, chunk_len, staging_len)
+
+        def run(params, tokens, caches, start, n_valid):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, tokens, caches, start, n_valid)
+            torch.cuda.synchronize()
+            chunks.append((chunk_len, staging_len, start, n_valid,
+                           (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    reqs = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(engine_mod, "cached_chunk_prefill_step", timed):
+        submit(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_attention": flash_attention.launches}
+    if not all(r.status.value == "finished"
+               and len(r.generated) == r.max_new_tokens
+               and all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+        raise AssertionError("chunked: not every request finished inside "
+                             "the vocab: " + ", ".join(
+                                 f"{r.rid}:{r.status.value}:"
+                                 f"{len(r.generated)}" for r in reqs))
+    decode_batches = sum(1 for st in eng.metrics.steps if st.n_decoded)
+    want = {"paged_attention": cfg.n_layers * decode_batches,
+            "flash_attention": 0}
+    if launches != want:
+        raise AssertionError(f"chunked: launches {launches}, want {want}")
+    return reqs, launches, chunks, decode_batches, wall
+
+
+def log_chunks(label, chunks):
+    """Every chunk as `chunk tokens`/`staging tokens`@start+valid: wall ms."""
+    log(f"{label}: {len(chunks)} chunks: " + ", ".join(
+        f"{c}/{s}@{start}+{n}: {ms:.2f} ms"
+        for c, s, start, n, ms in chunks))
+
+
+def chunk_logits_check(torch, cfg, params, prompt):
+    """The longest prompt chunk by chunk through `chunk_prefill` into a
+    staging cache against the monolithic `prefill` (the flash kernel):
+    last-chunk logits within LOGIT_TOL of the logit scale, and the same
+    greedy pick.  Then one chunk step is profiled."""
+    from repro_torch.launch.steps import chunk_prefill_step, prefill_step
+    from repro_torch.nn.model import init_cache
+    from repro_torch.tree import tree_leaves
+    tokens = torch.tensor([prompt], device="cuda")
+    staging = -(-len(prompt) // CHUNK) * CHUNK
+    caches = init_cache(cfg, 1, staging, staging=True, device="cuda")
+    for start in range(0, len(prompt), CHUNK):
+        n = min(CHUNK, len(prompt) - start)
+        logits, caches = chunk_prefill_step(
+            params, tokens[:, start:start + n], caches, start, n, cfg)
+    mono, mono_cache = prefill_step(params, tokens, cfg, staging)
+    kv_err = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(tree_leaves(caches), tree_leaves(mono_cache)))
+    kv_scale = max(b.float().abs().max().item()
+                   for b in tree_leaves(mono_cache))
+    c32, m32 = (x.float()[:, :cfg.vocab] for x in (logits, mono))
+    if not (torch.isfinite(c32).all() and c32.shape == (1, cfg.vocab)):
+        raise AssertionError("chunk_prefill logits not finite / wrong shape")
+    err = (c32 - m32).abs().max().item()
+    scale = m32.abs().max().item()
+    same = bool(c32.argmax() == m32.argmax())
+    log(f"chunk_prefill ({len(prompt)} tokens in chunks of {CHUNK}, staging "
+        f"{staging}) vs monolithic prefill: last-chunk logits max abs err "
+        f"{err:.4g} (logit scale {scale:.4g}, tolerance {LOGIT_TOL:.0%} of "
+        f"it), same greedy pick {same}; staging K/V vs the prefill's cache "
+        f"max abs err {kv_err:.4g} (scale {kv_scale:.4g})")
+    if not err <= LOGIT_TOL * scale:
+        raise AssertionError("chunk_prefill logits differ from prefill's "
+                             "beyond the tolerance")
+    chunk = tokens[:, :CHUNK]
+    profile_step(torch, lambda: chunk_prefill_step(params, chunk, caches, 0,
+                                                   CHUNK, cfg), 3,
+                 f"chunk step (1 x {CHUNK} tokens into a {staging}-token "
+                 f"staging, {cfg.n_layers} layers)",
+                 cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3)
+
+
+def chunked_prefill(torch, cfg, params, requests, mono_tokens):
+    """Phase 3's requests through the chunked engine with the prefix cache
+    on, then a shared-prefix workload warm (prefix cache on) and cold
+    (off).  Returns the chunked arm's launches."""
+    from repro_torch.serving import format_summary
+    max_seq = max(len(p) + n for p, n, _ in requests)
+    n_pages = len(requests) * -(-max_seq // 16)
+
+    def submit_all(eng, reqs):
+        for prompt, n_new, sampling in requests:
+            reqs.append(eng.submit("gemma-7b", prompt, max_new_tokens=n_new,
+                                   **sampling))
+        eng.run()
+
+    eng = chunked_engine(torch, cfg, params, max_seq, n_pages, True)
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reqs, launches, chunks, batches, wall = run_chunked(torch, cfg, eng,
+                                                        submit_all)
+    summary = eng.summary()
+    log(format_summary(summary))
+    log_chunks(f"chunked arm (chunk {CHUNK}, budget {CHUNK_BUDGET}, page 16, "
+               f"prefix cache on)", chunks)
+    tokens = sum(len(r.generated) for r in reqs)
+    agree = [r.generated == mono_tokens[r.rid] for r in reqs]
+    same = sum(a == b for r in reqs
+               for a, b in zip(r.generated, mono_tokens[r.rid]))
+    # where each request's tokens first part from the monolithic arm's:
+    # 0 is the prefill's own token, later ones a decode step's pick
+    parted = [next((i for i, (a, b) in enumerate(
+        zip(r.generated, mono_tokens[r.rid])) if a != b), None)
+        for r in reqs]
+    ttft = sorted(r.ttft * 1e3 for r in reqs)
+    log(f"chunked arm: {len(reqs)} requests, {tokens} tokens in {wall:.3f} s "
+        f"({len(eng.metrics.steps)} steps, {batches} decode batches, "
+        f"{int(summary['prefill_chunks'])} chunks, "
+        f"{int(summary['prefill_tokens'])} prompt tokens); TTFT "
+        f"{', '.join(f'{t:.1f}' for t in ttft)} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({held:.2f} "
+        f"GiB allocated before the run); launches {json.dumps(launches)}")
+    log(f"greedy agreement with phase 3's monolithic arm: {sum(agree)} of "
+        f"{len(reqs)} requests identical, {same} of {tokens} tokens equal "
+        f"position by position; first differing token by request "
+        f"{parted} (0 = the prefill's token)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunk_logits_check(torch, cfg, params,
+                       max((p for p, _, _ in requests), key=len))
+
+    rng = np.random.default_rng(2)
+    shared = rng.integers(1, cfg.vocab, SHARED_PREFIX).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab,
+                                     int(rng.integers(64, 201))).tolist()
+               for _ in range(4)]
+    max_seq = max(len(p) for p in prompts) + 16
+    runs = {}
+    for label, cache in (("warm", True), ("cold", False)):
+        def submit_prefix(eng, reqs):
+            reqs.append(eng.submit("gemma-7b", prompts[0],
+                                   max_new_tokens=16))
+            eng.run()
+            reqs.extend(eng.submit("gemma-7b", p, max_new_tokens=16)
+                        for p in prompts[1:])
+            eng.run()
+
+        eng = chunked_engine(torch, cfg, params, max_seq,
+                             4 * -(-max_seq // 16), cache)
+        reqs, _, chunks, batches, wall = run_chunked(torch, cfg, eng,
+                                                     submit_prefix)
+        summary = eng.summary()
+        runs[label] = (summary, [list(r.generated) for r in reqs],
+                       [r.ttft * 1e3 for r in reqs[1:]])
+        log_chunks(f"prefix-cache arm, {label}", chunks)
+        log(f"prefix-cache arm, {label}: {int(summary['prefill_tokens'])} "
+            f"prompt tokens computed, {int(summary['prefix_hit_tokens'])} "
+            f"served from cache, {int(summary['prefill_chunks'])} chunks, "
+            f"{len(eng.metrics.steps)} steps in {wall:.3f} s; TTFT of the "
+            f"three followers {', '.join(f'{t:.1f}' for t in runs[label][2])}"
+            f" ms")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    (warm, warm_toks, _), (cold, cold_toks, _) = runs["warm"], runs["cold"]
+    hit = 3 * SHARED_PREFIX
+    if (warm["prefix_hit_tokens"], cold["prefix_hit_tokens"]) != (hit, 0):
+        raise AssertionError(f"prefix cache: hit tokens warm "
+                             f"{warm['prefix_hit_tokens']}, cold "
+                             f"{cold['prefix_hit_tokens']}; want {hit}, 0")
+    if cold["prefill_tokens"] - warm["prefill_tokens"] != hit:
+        raise AssertionError(f"prefix cache: prompt tokens computed warm "
+                             f"{warm['prefill_tokens']}, cold "
+                             f"{cold['prefill_tokens']}; want {hit} apart")
+    if warm_toks != cold_toks:
+        raise AssertionError(f"prefix cache: warm tokens {warm_toks} differ "
+                             f"from cold {cold_toks}")
+    log(f"prefix cache: {hit} prompt tokens skipped warm, greedy tokens "
+        f"equal warm and cold")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1385,7 +1618,7 @@ def main() -> int:
                     else {})
         requests.append((rng.integers(1, cfg.vocab, n).tolist(),
                          int(rng.integers(16, 33)), sampling))
-    launches = serve(torch, cfg, params, requests, page=16)
+    launches, mono_tokens = serve(torch, cfg, params, requests, page=16)
 
     # phase 4: first decode step, kernels against plain versions
     pre_err, dec_err, scale, agree, arena = first_step_logits(
@@ -1437,7 +1670,13 @@ def main() -> int:
     # phase 6: two tenants through an ARAS weight arena at full width
     t_launches = two_tenants(torch, cfg, params, decode_wall_ms)
 
-    # phase 7: report
+    # phase 7: chunked prefill and the prefix cache at full width
+    t0 = time.perf_counter()
+    c_launches = chunked_prefill(torch, cfg, params, requests, mono_tokens)
+    log(f"phase 7 (chunked prefill, prefix cache): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 8: report
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1449,6 +1688,7 @@ def main() -> int:
          "bound_ms": paged[PAGED_MAIN][4][0],
          "bound_by": paged[PAGED_MAIN][4][1], "library_ms": None,
          "two_tenant_launches": t_launches["paged_attention"],
+         "chunked_launches": c_launches["paged_attention"],
          **f32_fields(errs32["paged"], paged32[PAGED_F32_MAIN], None),
          "f32_cold_ms_by_shape": {k: v[1] for k, v in paged32.items()}},
         {"name": "flash_attention", "route": "cuda",
@@ -1461,6 +1701,7 @@ def main() -> int:
          "bound_ms": flash[1, 512][4][0], "bound_by": flash[1, 512][4][1],
          "library_ms": flash[1, 512][3],
          "two_tenant_launches": t_launches["flash_attention"],
+         "chunked_launches": c_launches["flash_attention"],
          **f32_fields(errs32["flash"], flash32[16], flash32[16][3]),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
          "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},

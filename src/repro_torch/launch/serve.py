@@ -1,14 +1,17 @@
 """Serving launcher of the port: the continuous-batching engine over two
-tenants with a paged KV cache, monolithic prefill and fused sampling,
-tenant-b a perturbed variant of tenant-a, both behind one ARAS weight
-arena of `--weight-slots` layers (`--engine`); or one forward of the ARAS
-layer-streaming executor, whose arena holds only `--arena-slots` layers
-(`--streaming`).
+tenants with a paged KV cache, monolithic or chunked prefill (with the
+radix prefix cache's chunk skip) and fused sampling, tenant-b a perturbed
+variant of tenant-a, both behind one ARAS weight arena of
+`--weight-slots` layers (`--engine`); or one forward of the ARAS
+layer-streaming executor over `make_batch`'s tokens, whose arena holds
+only `--arena-slots` layers (`--streaming`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
         --arch gemma-7b --requests 8 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --engine --smoke \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine --smoke \
+        --device cpu --prefill-chunk 4 --prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --streaming \
         --arch gemma-7b --arena-slots 3 --batch 4 --prompt-len 512
     PYTHONPATH=src python -m repro_torch.launch.serve --streaming --smoke \
@@ -21,6 +24,7 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.nn.model import init_params
 from repro_torch.serving import (EngineModel, InstallCostModel,
                                  SchedulerConfig, ServingEngine,
@@ -38,14 +42,20 @@ def _run_engine(args) -> None:
     base = init_params(cfg, seed=0, device=args.device)
     variant = perturbed_variant(base)
     kv = dict(kv_slots=args.kv_slots, max_seq=args.prompt_len + args.gen + 8,
-              page_size=args.page_size)
+              page_size=args.page_size, prefix_cache=args.prefix_cache,
+              prefix_cache_pages=args.prefix_cache_pages)
     tenants = [EngineModel("tenant-a", base, cfg, **kv),
                EngineModel("tenant-b", variant, cfg, **kv)]
     weight_slots = args.weight_slots or cfg.n_layers + 1
     eng = ServingEngine(
         tenants, weight_arena_slots=weight_slots,
         sched=SchedulerConfig(max_prefill_per_step=4,
-                              model_turn_steps=args.turn_steps),
+                              model_turn_steps=args.turn_steps,
+                              prefill_token_budget=(
+                                  args.prefill_token_budget or None)),
+        prefill_chunk=args.prefill_chunk,
+        bucket_growth=args.bucket_growth,
+        staging_growth=args.staging_growth,
         install_ticks_per_step=args.install_ticks_per_step,
         overlap_installs=args.overlap_installs,
         install_cost=InstallCostModel(
@@ -66,8 +76,9 @@ def _run_engine(args) -> None:
 
 
 def _run_streaming(args) -> None:
-    """`repro.launch.serve --streaming`: one streamed forward over a batch
-    of random tokens drawn from a numpy Generator(--seed)."""
+    """`repro.launch.serve --streaming`: one streamed forward over step 0 of
+    the synthetic data pipeline, `make_batch(cfg, DataConfig(prompt_len,
+    batch), 0)`, as the reference feeds it."""
     import torch
     from repro_torch.streaming.executor import StreamingExecutor
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -76,9 +87,9 @@ def _run_streaming(args) -> None:
                            plan_tokens=args.batch * args.prompt_len,
                            device=args.device)
     del params
-    rng = np.random.default_rng(args.seed)
-    tokens = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
-    batch = {"tokens": torch.as_tensor(tokens, device=ex.device)}
+    data = DataConfig(seq_len=args.prompt_len, global_batch=args.batch)
+    batch = {k: torch.as_tensor(v, device=ex.device)
+             for k, v in make_batch(cfg, data, 0).items()}
     _, m = ex.forward(batch)
     print(f"streaming forward: {m['wall_s']*1e3:.1f} ms, "
           f"wire {m['wire_bytes']/1e6:.2f} MB vs raw "
@@ -100,8 +111,6 @@ def _parser() -> argparse.ArgumentParser:
                    help="streaming: layers the device arena holds")
     p.add_argument("--batch", type=int, default=4,
                    help="streaming: sequences in the batch")
-    p.add_argument("--seed", type=int, default=0,
-                   help="streaming: seed of the random prompt tokens")
     p.add_argument("--kv-slots", type=int, default=4,
                    help="engine: decode rows of each tenant")
     p.add_argument("--weight-slots", type=int, default=0,
@@ -117,6 +126,33 @@ def _parser() -> argparse.ArgumentParser:
                    help="engine: pipeline the next tenant's weight installs "
                         "under the current tenant's final decode steps "
                         "(needs --install-ticks-per-step > 0)")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="engine: split prompt prefills into chunks of this "
+                        "many tokens, spread across steps (0 = monolithic "
+                        "per-prompt-length prefill)")
+    p.add_argument("--prefill-token-budget", type=int, default=0,
+                   help="engine: cap on prompt tokens one step may spend on "
+                        "chunked prefill (0 = unbudgeted; needs "
+                        "--prefill-chunk > 0 to matter)")
+    p.add_argument("--bucket-growth", type=float, default=2.0,
+                   help="engine: geometric growth of the prompt-length "
+                        "bucket ladder tail chunks are padded to; bounds "
+                        "the distinct chunk shapes at the ladder size "
+                        "(<= 1 disables bucketing)")
+    p.add_argument("--staging-growth", type=float, default=2.0,
+                   help="engine: geometric growth of the staging-length "
+                        "ladder — each chunked prefill stages into the "
+                        "smallest rung covering its prompt instead of one "
+                        "max-capacity buffer (<= 1 restores the single "
+                        "max-capacity staging length)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="engine: radix-tree prefix cache over KV pages: "
+                        "finished requests donate their pages, warm "
+                        "requests skip prefill chunks covered by cached "
+                        "pages, LRU eviction frees pages on demand")
+    p.add_argument("--prefix-cache-pages", type=int, default=0,
+                   help="engine: cap on retained prefix-cache pages per "
+                        "tenant (0 = bounded only by on-demand eviction)")
     p.add_argument("--page-size", type=int, default=8,
                    help="tokens per KV page")
     p.add_argument("--prompt-len", type=int, default=32)

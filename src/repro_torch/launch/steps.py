@@ -1,25 +1,110 @@
 """Serving step functions — PyTorch port of the serving half of
 `repro.launch.steps`.
 
-The reference wraps each step in a cached `jax.jit`; PyTorch runs
-eagerly, so these are plain functions and no compile cache is needed.
+The reference wraps each step in a cached `jax.jit`.  PyTorch runs
+eagerly, so the steps are plain functions; the prefill steps keep the
+reference's `functools.lru_cache`d factories all the same, keyed on the
+same shapes, so `prefill_cache_info` counts the distinct prefill shapes
+an engine ran exactly as the reference counts its jit traces.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Dict, Sequence
 
 import torch
 
+from repro_torch.nn.attention import _kv_quant
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.model import decode_step, prefill
+from repro_torch.nn.model import chunk_prefill, decode_step, prefill
 from repro_torch.serving.sampling import sample_tokens
 
 
 def prefill_step(params, tokens: torch.Tensor, cfg: ModelConfig,
                  cache_len: int):
-    """(`cached_prefill_step`) prompt tokens (B, S) -> (next-token logits
-    (B, vocab_padded), batch caches of length cache_len)."""
+    """Prompt tokens (B, S) -> (next-token logits (B, vocab_padded), batch
+    caches of length cache_len)."""
     return prefill(params, tokens, cfg, cache_len)
+
+
+@functools.lru_cache(maxsize=None)
+def cached_prefill_step(cfg: ModelConfig, cache_len: int):
+    """`prefill_step` at one cache length: (params, tokens) -> (logits,
+    caches)."""
+    def step(params, tokens):
+        return prefill_step(params, tokens, cfg, cache_len)
+    return step
+
+
+def chunk_prefill_step(params, tokens: torch.Tensor, caches, start: int,
+                       n_valid: int, cfg: ModelConfig):
+    """One chunk (1, C) at absolute positions [start, start+C) of a staging
+    cache (written in place), only the first `n_valid` tokens real ->
+    (logits (1, vocab_padded) at start + n_valid - 1, caches)."""
+    return chunk_prefill(params, tokens, caches, start, n_valid, cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def cached_chunk_prefill_step(cfg: ModelConfig, chunk_len: int,
+                              staging_len: int):
+    """`chunk_prefill_step` for chunks of `chunk_len` tokens (the engine pads
+    the tail chunk up to a bucket-ladder rung) into a `staging_len` staging
+    cache.  Keyed on both, so the number of misses is the number of
+    distinct chunk shapes — bounded by the ladder sizes, as the reference's
+    jit traces are (see prefill_cache_info)."""
+    def step(params, tokens, caches, start, n_valid):
+        if tokens.shape[1] != chunk_len:
+            raise ValueError(f"chunk of {tokens.shape[1]} tokens through a "
+                             f"{chunk_len}-token step")
+        return chunk_prefill_step(params, tokens, caches, start, n_valid,
+                                  cfg)
+    return step
+
+
+def prefill_cache_info() -> Dict[str, int]:
+    """Hit/miss/shape counters over the prefill step caches (process-wide,
+    shared by every engine instance of the same config), under the
+    reference's keys."""
+    mono = cached_prefill_step.cache_info()
+    chunk = cached_chunk_prefill_step.cache_info()
+    return {
+        "prefill_hits": mono.hits, "prefill_misses": mono.misses,
+        "prefill_traces": mono.currsize,
+        "chunk_hits": chunk.hits, "chunk_misses": chunk.misses,
+        "chunk_traces": chunk.currsize,
+        "hits": mono.hits + chunk.hits,
+        "misses": mono.misses + chunk.misses,
+        "traces": mono.currsize + chunk.currsize,
+    }
+
+
+# ----------------------------------------- chunked-prefill staging install
+def _finalize_attn_entry(cfg: ModelConfig, entry):
+    """One attention entry from the raw staging layout to the page-pool
+    install source: int8 tenants quantize here (staging attends in bf16,
+    as the monolithic prefill does, and quantizes once).  Page pools store
+    every position, so nothing is ringed or sliced."""
+    if cfg.kv_cache_dtype != "int8":
+        return entry
+    kq, ks = _kv_quant(entry["k"])
+    vq, vs = _kv_quant(entry["v"])
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _make_stage_finalize(cfg: ModelConfig):
+    def finalize(staging):
+        return [{**seg, "attn": _finalize_attn_entry(cfg, seg["attn"])}
+                for seg in staging]
+    return finalize
+
+
+@functools.lru_cache(maxsize=None)
+def cached_stage_quantize(cfg: ModelConfig, staging_len: int):
+    """Staging -> paged-pool install source (the reference's
+    `cached_stage_quantize`, keyed on the same shapes): only int8 tenants
+    change.  The staging is left as it is; the page writer slices several
+    blocks out of the finalized source."""
+    return _make_stage_finalize(cfg)
 
 
 def paged_serve_step(params, token, caches, pos, page_table,

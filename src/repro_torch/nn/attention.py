@@ -1,9 +1,15 @@
 """Attention, GQA half — PyTorch port of `repro.nn.attention`.
 
-Two modes, as the serving path uses them:
+Three modes, as the serving path uses them:
   * prefill (cache=None, make_cache=True): causal self-attention over the
     prompt through the flash kernel, then the batch's K/V laid out as a
     contiguous cache (int8-quantized when the config says so);
+  * chunked prefill (cache = a contiguous staging cache, page_table None,
+    cache_pos = the chunk's int start): write the chunk's K/V at
+    absolute positions [start, start+S) of the staging cache, then attend
+    with a per-query mask over the whole staging cache — the reference's
+    XLA einsum route (`repro.nn.attention`, its chunked branch), which no
+    Pallas kernel of the reference takes;
   * paged decode (cache = page pools, page_table given, S == 1): scatter
     this token's K/V into its physical page, then attend over the row's
     pages through the paged kernel.
@@ -55,7 +61,8 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
 
 
 def _softmax_attend(q, k, v, mask, softcap: float) -> torch.Tensor:
-    """q (B,Q,Hkv,G,D), k/v (B,K,Hkv,D), mask (B|1,Q,K) -> (B,Q,Hkv,G,D) f32."""
+    """q (B,Q,Hkv,G,D), k/v (B,K,Hkv,D), mask (B|1,Q,K) -> (B,Q,Hkv,G,D) f32:
+    the reference's f32 einsum -> softcap -> where -> softmax -> einsum."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
     if softcap > 0:
@@ -113,25 +120,46 @@ def attention(
     cache_len: int = 0,
     page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Prefill (cache=None, optionally make_cache) or paged decode (cache
-    = page pools, page_table (B, T), cache_pos (B,) per-row positions).
-    Returns (y (B, S, d_model), new_cache)."""
+    """Prefill (cache=None, optionally make_cache), chunked prefill (cache
+    = a contiguous staging cache, page_table None, cache_pos = the chunk's
+    int start) or paged decode (cache = page pools, page_table
+    (B, T), cache_pos (B,) per-row positions).  Returns (y (B, S,
+    d_model), new_cache); caches are written in place."""
     if cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: attn_type {cfg.attn_type!r} is not ported yet")
     B, S, _ = x.shape
     dev = x.device
-    positions = (torch.arange(S, device=dev)[None, :].expand(B, S)
-                 if cache_pos is None else cache_pos[:, None])
+    if cache_pos is None:
+        positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    elif page_table is None:
+        # a chunk at absolute positions [start, start+S)
+        positions = (int(cache_pos)
+                     + torch.arange(S, device=dev))[None, :].expand(B, S)
+    else:
+        positions = cache_pos[:, None]
 
     q, k, v = _gqa_qkv(params, x, cfg, positions)
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     new_cache = None
 
-    if cache is not None:
-        if page_table is None:
+    if cache is not None and page_table is None:
+        if torch.is_tensor(cache_pos) and cache_pos.ndim:
             raise NotImplementedError(
-                "contiguous-cache decode is not ported; pass a page_table")
+                "contiguous-cache decode at per-row positions (the slot "
+                "layout) is not ported; pass a page_table")
+        # a chunk may be one token (a prefix-cache skip can leave one); the
+        # reference runs that through its decode branch at the same scalar
+        # position, with the same write and mask for full-attention bf16
+        new_cache = cache
+        kc, vc = _staging_append(cache, k, v, int(cache_pos))
+        kpos = torch.arange(kc.shape[1], device=dev)[None, :]
+        qpos = (int(cache_pos) + torch.arange(S, device=dev))[:, None]
+        valid = kpos <= qpos
+        if layer_window > 0:
+            valid = valid & (qpos - kpos < layer_window)
+        o = _softmax_attend(q, kc, vc, valid[None], cfg.logit_softcap)
+    elif cache is not None:
         if S == 1 and layer_window <= 0 and cfg.logit_softcap <= 0:
             # the paged kernel walks only each row's live tokens; int8
             # pools are dequantized first (identical values to the
@@ -154,14 +182,8 @@ def attention(
             valid = kpos <= cp
             if layer_window > 0:
                 valid = valid & (kpos > cp - layer_window)
-            scale = 1.0 / math.sqrt(D)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), kc.float()) * scale
-            if cfg.logit_softcap > 0:
-                s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
-            s = torch.where(valid[:, None, None, None, :], s,
-                            torch.full_like(s, NEG_INF))
-            p = torch.softmax(s, dim=-1)
-            o = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.float())
+            o = _softmax_attend(q, kc, vc, valid[:, None, :],
+                                cfg.logit_softcap)
     else:
         if cfg.causal and layer_window <= 0 and cfg.logit_softcap <= 0:
             o = flash_attention(q.reshape(B, S, H, D), k, v, causal=True)
@@ -216,6 +238,23 @@ def _make_cache(k, v, cfg: ModelConfig, layer_window: int, L: int):
     if int8:
         cache.update({"k_scale": ksc, "v_scale": vsc})
     return cache
+
+
+def _staging_append(cache, k, v, start: int):
+    """Chunked-prefill append (the reference's `_dus_batch` at a scalar
+    start): write this chunk's K/V (B, S, Hkv, D) at absolute positions
+    [start, start+S) of the staging cache, in place, and return its full
+    (B, L, Hkv, D) K and V.  Staging holds raw K/V in the activation dtype
+    for every tenant (int8 tenants quantize once, at page install).  The
+    reference's dynamic_update_slice would clamp a start that spills past
+    the cache and overwrite earlier positions; here that raises."""
+    S, L = k.shape[1], cache["k"].shape[1]
+    if not 0 <= start <= L - S:
+        raise ValueError(f"chunk of {S} tokens at {start} does not fit a "
+                         f"staging cache of {L}")
+    cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
+    cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
+    return cache["k"], cache["v"]
 
 
 def _paged_ops(pool_leaf, cache_pos, page_table):

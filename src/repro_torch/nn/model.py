@@ -1,6 +1,7 @@
 """Top-level language model — PyTorch port of `repro.nn.model` for token
-LMs: embeddings → stack → norm → logits, plus the prefill and paged decode
-entry points used by serving.
+LMs: embeddings → stack → norm → logits, plus the serving entry points:
+monolithic prefill, chunked prefill into a staging cache, and paged
+decode.
 """
 from __future__ import annotations
 
@@ -107,6 +108,57 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     (next_token_logits (B, vocab_padded), caches of length cache_len)."""
     logits, caches = forward(params, tokens, cfg, make_cache=True,
                              cache_len=cache_len, last_only=True)
+    return logits[:, 0], caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, staging: bool = False, device="cuda"):
+    """Zeroed contiguous caches mirroring the stack's segment plan:
+    scanned segments get stacked (length, ...) leaves, singles get dicts.
+    ``staging=True`` gives the chunked-prefill staging layout: windowed
+    layers keep full ``cache_len`` buffers (the window is applied in the
+    score mask) and int8 tenants keep raw K/V in ``dtype`` (quantized once
+    at page install, as the monolithic prefill quantizes after attending).
+    Only GQA attention stacks are ported."""
+    dev = resolve_device(device)
+    int8 = cfg.kv_cache_dtype == "int8" and not staging
+    caches = []
+    for start, length, scanned in stack_plan(cfg):
+        kind = layer_kind(cfg, start)
+        if kind != "attn" or cfg.attn_type != "gqa":
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}): "
+                f"{kind if kind != 'attn' else cfg.attn_type} caches are "
+                "not ported yet")
+        window = cfg.window_for_layer(start)
+        L = min(window, cache_len) if window and not staging else cache_len
+        shape = ((length,) if scanned else ()) + (
+            batch, L, cfg.n_kv_heads, cfg.head_dim)
+        kv_dt = torch.int8 if int8 else dtype
+        entry = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
+                 "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
+        if int8:
+            entry["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=dev)
+            entry["v_scale"] = torch.zeros_like(entry["k_scale"])
+        caches.append({"attn": entry})
+    return caches
+
+
+def chunk_prefill(params: Params, tokens: torch.Tensor, caches, start: int,
+                  n_valid: int, cfg: ModelConfig):
+    """One chunked-prefill step: run ``tokens`` (B, C) at absolute positions
+    [start, start+C) against the staging ``caches`` (``init_cache(...,
+    staging=True)`` zeros for the first chunk), which are written in place.
+    Only the first ``n_valid`` tokens are real; the padded tail writes K/V
+    that no later query's mask admits.  Returns (logits (B, vocab_padded)
+    at position start + n_valid - 1, caches) — the last chunk's logits are
+    the prompt's next-token distribution, as ``prefill`` returns it."""
+    x, _ = _inputs_to_x(params, {"tokens": tokens}, cfg)
+    x, _ = apply_stack(params["stack"], x, cfg, caches=caches,
+                       cache_pos=int(start))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps).to(torch.bfloat16)
+    logits = unembed(params["embedding"], x[:, n_valid - 1:n_valid], cfg)
     return logits[:, 0], caches
 
 

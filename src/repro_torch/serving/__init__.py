@@ -1,10 +1,13 @@
 """Continuous-batching serving engine of the port: request queue and
 admission control, paged KV arenas (block page tables, refcounted prefix
-sharing, COW, radix-tree prefix cache), multi-model weight-arena residency
+sharing, COW, radix-tree prefix cache), chunked prefill into a staging
+cache with the prefix cache's chunk skip, multi-model weight-arena residency
 with cross-tenant §V-C delta reuse and a tick-budgeted install pipeline
 that overlaps tenant switches with decode, fused on-device sampling, and
 the engine metrics and tracing surface (drivable on a deterministic
 VirtualClock)."""
+from repro_torch.serving.bucketing import (PrefillProgress, bucket_for,
+                                           bucket_ladder)
 from repro_torch.serving.engine import EngineModel, ServingEngine
 from repro_torch.serving.harness import drive_simulated
 from repro_torch.serving.metrics import (EngineMetrics, VirtualClock,
@@ -22,5 +25,6 @@ __all__ = [
     "format_summary", "PageAllocator", "PagedKVArena", "Request",
     "RequestStatus", "InstallPipeline", "InstallCostModel",
     "WeightResidencyManager", "SchedulerConfig", "StepScheduler",
-    "drive_simulated", "NULL_TRACER", "Tracer",
+    "drive_simulated", "NULL_TRACER", "Tracer", "PrefillProgress",
+    "bucket_for", "bucket_ladder",
 ]

@@ -12,7 +12,15 @@ the resident tenants (a monolithic prefill into a page-multiple bucket,
 whose pages are then installed into the tenant's `PagedKVArena`; the
 prefill's logits give the first token), then decodes one token for every
 running row of each of them in one batched paged decode step, sampling on
-the device (fused) or right after it (split).  Finished requests donate
+the device (fused) or right after it (split).  With `prefill_chunk > 0`
+a prompt is instead prefilled in chunks spread across steps under the
+scheduler's prefill-token budget: each request stages its K/V in a
+contiguous staging cache (chunk attention is the reference's masked
+einsum over it), skips the chunks its tenant's prefix cache already holds
+(the staging is seeded from the cached pages), and installs only its
+non-shared pages when the last chunk gives the first token; the tail
+chunk is padded to a bucket-ladder rung, so the chunk shapes stay few.
+Finished requests donate
 their pages to the radix prefix cache when the tenant has it on; a pool
 that runs dry mid-decode preempts the request, which re-prefills its
 prompt plus generated tokens on readmission.
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -34,10 +43,16 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import (fused_paged_serve_step,
-                                      paged_serve_step, prefill_step,
+from repro_torch.launch.steps import (cached_chunk_prefill_step,
+                                      cached_prefill_step,
+                                      cached_stage_quantize,
+                                      fused_paged_serve_step,
+                                      paged_serve_step, prefill_cache_info,
                                       sample_step)
 from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.model import init_cache
+from repro_torch.serving.bucketing import (PrefillProgress, bucket_for,
+                                           bucket_ladder)
 from repro_torch.serving.metrics import EngineMetrics, StepRecord
 from repro_torch.serving.paging import PagedKVArena
 from repro_torch.serving.request import Request, RequestStatus
@@ -79,6 +94,10 @@ class ServingEngine:
                  install_ticks_per_step: int = 0,
                  overlap_installs: bool = False,
                  install_cost: Optional[InstallCostModel] = None,
+                 prefill_chunk: int = 0,
+                 bucket_growth: float = 2.0,
+                 bucket_min: int = 8,
+                 staging_growth: float = 2.0,
                  tracer: Optional[Tracer] = None,
                  fuse_sampling: bool = True,
                  device="cuda"):
@@ -149,6 +168,46 @@ class ServingEngine:
         if self.pipeline is not None:
             self.pipeline.tracer = self.tracer
 
+        # Chunked prefill: prefill_chunk > 0 splits every prompt into
+        # chunk-sized pieces run across steps under the scheduler's
+        # prefill-token budget (queued -> PREFILLING -> RUNNING), so a long
+        # prompt never freezes concurrent decodes.  The tail chunk is
+        # padded up to a geometric bucket-ladder rung (bucket_growth <= 1
+        # disables the padding).  0 keeps the monolithic prefill.
+        self._chunk = int(prefill_chunk)
+        if self._chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0 (0 = monolithic)")
+        self._ladder: Optional[list] = None
+        if self._chunk > 0 and bucket_growth > 1.0:
+            self._ladder = bucket_ladder(min(bucket_min, self._chunk),
+                                         self._chunk, bucket_growth)
+        self._prefills: Dict[int, PrefillProgress] = {}
+        self._staging_ladders: Dict[str, list] = {}
+        if self._chunk > 0:
+            for m in models:
+                # Staging-length ladder: each in-flight prefill stages into
+                # the smallest rung covering its prompt.  Rungs are
+                # multiples of lcm(chunk, page): bucket-padded tails always
+                # fit, chunk starts stay aligned, and the install's
+                # per-page slices stay in bounds.  staging_growth <= 1
+                # collapses it to the single max-capacity length.
+                quantum = math.lcm(self._chunk, m.page_size)
+                cap = self.arenas[m.name].max_tokens
+                top = -(-cap // quantum) * quantum
+                if staging_growth > 1.0 and top > quantum:
+                    rungs = sorted({-(-r // quantum) * quantum for r in
+                                    bucket_ladder(quantum, top,
+                                                  staging_growth)})
+                else:
+                    rungs = [top]
+                self._staging_ladders[m.name] = rungs
+
+    def staging_len_for(self, name: str, n_tokens: int) -> int:
+        """The staging-ladder rung an `n_tokens`-token prefill stages into
+        (smallest rung covering it; rungs are chunk multiples, so the
+        bucket-padded tail chunk always fits)."""
+        return bucket_for(n_tokens, self._staging_ladders[name])
+
     # ------------------------------------------------------------ intake
     def submit(self, model: str, prompt: Sequence[int],
                max_new_tokens: int = 16,
@@ -179,8 +238,13 @@ class ServingEngine:
 
     def preempt(self, rid: int) -> None:
         """Evict a running request's pages and requeue it; its generated
-        prefix is re-prefilled on readmission, so no tokens are lost."""
+        prefix is re-prefilled on readmission, so no tokens are lost.  A
+        mid-prefill (chunked) request keeps its staging and resumes at the
+        last completed chunk instead."""
         req = self.requests[rid]
+        if req.status is RequestStatus.PREFILLING:
+            self._preempt_prefill(req)
+            return
         if req.status is not RequestStatus.RUNNING:
             return
         self.arenas[req.model].evict(req.slot)
@@ -197,13 +261,16 @@ class ServingEngine:
         if not self.tracer.enabled:
             return
         pages = len(self.arenas[req.model].allocator.tables.get(req.rid, ()))
+        st = self._prefills.get(req.rid)
+        chunks = (-(-st.done // self._chunk)
+                  if st is not None and self._chunk > 0 else 0)
         self.tracer.instant("requeue", rid=req.rid, reason=reason,
-                            pages_held=pages)
+                            pages_held=pages, chunks_done=chunks)
         _log.info(
             "request %d (%s) requeued [%s]: timeline[%s] pages_held=%d "
-            "generated=%d preemptions=%d", req.rid, req.model, reason,
-            self.tracer.request_timeline(req.rid), pages,
-            len(req.generated), req.preemptions)
+            "chunks_done=%d generated=%d preemptions=%d", req.rid,
+            req.model, reason, self.tracer.request_timeline(req.rid), pages,
+            chunks, len(req.generated), req.preemptions)
 
     # ------------------------------------------------------------- step
     def _pick_token(self, req: Request, logits_row) -> int:
@@ -217,18 +284,23 @@ class ServingEngine:
                             key=request_key(req.seed, req.rid),
                             step=len(req.generated))
 
-    def _admit(self, allowed) -> tuple:
-        """Admit queued requests: a free decode row AND enough free pages
-        for the request's non-shared blocks.  Each admission runs its
-        monolithic prefill into a page-multiple bucket (so the install
-        writes whole pages) and emits the first token."""
+    def _next_admits(self, allowed) -> list:
+        """Queued requests of the scheduled (weight-resident) tenants that
+        get a free decode row AND enough free pages for their non-shared
+        blocks this step, popped from the queue."""
         free = {name: (arena.n_free if name in allowed else 0)
                 for name, arena in self.arenas.items()}
         n_active = sum(len(a.active_slots()) for a in self.arenas.values())
-        admits = self.scheduler.next_admits(
+        return self.scheduler.next_admits(
             free, n_active,
             lambda req: self.arenas[req.model].can_admit(
                 req.serving_prompt()))
+
+    def _admit(self, allowed) -> tuple:
+        """Admit queued requests (`_next_admits`).  Each admission runs its
+        monolithic prefill into a page-multiple bucket (so the install
+        writes whole pages) and emits the first token."""
+        admits = self._next_admits(allowed)
         n_admitted = n_tokens = 0
         for req in admits:
             m = self.models[req.model]
@@ -249,7 +321,8 @@ class ServingEngine:
             tokens = torch.tensor([prompt], dtype=torch.int64,
                                   device=self.device)
             bucket = arena.blocks_for(len(prompt)) * arena.page_size
-            logits, caches = prefill_step(m.params, tokens, m.cfg, bucket)
+            logits, caches = cached_prefill_step(m.cfg, bucket)(m.params,
+                                                                tokens)
             tok = self._pick_token(req, logits[0])
             n_tokens += len(prompt)
             arena.install(slot, caches, tok, prompt)
@@ -293,12 +366,167 @@ class ServingEngine:
                                   n_generated=len(req.generated))
         self.metrics.record_finish(req)
 
+    # ------------------------------------------------- chunked prefill
+    def _admit_staged(self, allowed) -> int:
+        """Chunked-prefill admission: claim a decode row and a staging
+        cache, but run no model yet — chunks run under _pump_prefills'
+        token budget.  A preempted mid-prefill request re-enters here with
+        its PrefillProgress intact and resumes at the last completed chunk.
+
+        Prefix-cache hit: when the tenant's radix tree covers a prefix of
+        the prompt, the staging is seeded from the cached pages up to the
+        covered token and `done` jumps there, so those tokens are never
+        recomputed and cost no prefill budget.  The skip is capped at
+        prompt_len - 1 (the final chunk must run: its logits give the
+        first token).  Returns the prompt tokens served from cache."""
+        admits = self._next_admits(allowed)
+        hit_tokens = 0
+        for req in admits:
+            arena = self.arenas[req.model]
+            prompt = req.serving_prompt()
+            row = arena.stage(req.rid, prompt)
+            if row is None:
+                # an earlier admit this step took the row the pre-pop
+                # check saw; head-of-queue retry next step
+                self.scheduler.requeue(req)
+                req.status = RequestStatus.QUEUED
+                self._note_requeue(req, "staging row race")
+                continue
+            req.slot = row
+            req.status = RequestStatus.PREFILLING
+            self.tracer.request_phase(req.rid, "prefilling")
+            st = self._prefills.get(req.rid)
+            if st is None or st.tokens != prompt:
+                # fresh prefill (or a decode-preempted request whose prompt
+                # grew by its generated tokens): new staging from zeros,
+                # sized to the smallest ladder rung covering the prompt
+                m = self.models[req.model]
+                slen = self.staging_len_for(req.model, len(prompt))
+                st = PrefillProgress(
+                    tokens=prompt, staging_len=slen,
+                    caches=init_cache(m.cfg, 1, slen, staging=True,
+                                      device=self.device))
+                self._prefills[req.rid] = st
+            if arena.skip_ok:
+                # skip to the exact covered token; a resumed prefill jumps
+                # too when pages donated since its preemption extend the
+                # cover past its completed chunks
+                skip = min(arena.covered_tokens(req.rid, len(prompt)),
+                           len(prompt) - 1)
+                if skip > st.done:
+                    st.caches = arena.load_prefix(req.rid, st.caches, skip)
+                    hit_tokens += skip - st.done
+                    st.skipped += skip - st.done
+                    st.done = skip
+        return hit_tokens
+
+    def _run_chunk(self, req: Request, st: PrefillProgress) -> int:
+        """Advance one chunk; returns valid tokens processed, or -1 when
+        the chunk's pages could not be reserved (the prefill is preempted,
+        staging intact, and resumes once pages free up)."""
+        m = self.models[req.model]
+        arena = self.arenas[req.model]
+        start = st.done
+        remaining = len(st.tokens) - start
+        size = min(self._chunk, remaining)
+        if not arena.grow(req.rid, arena.blocks_for(start + size)):
+            self._preempt_prefill(req)
+            return -1
+        if remaining > self._chunk:
+            padded = self._chunk
+        elif self._ladder is not None:
+            padded = bucket_for(remaining, self._ladder)
+        else:
+            padded = remaining
+        # a prefix-cache skip can start the tail chunk at an unaligned
+        # position: clamp the padding so the write stays in the staging
+        padded = min(padded, st.staging_len - start)
+        buf = np.zeros((1, padded), np.int64)
+        buf[0, :size] = st.tokens[start:start + size]
+        if st.start_t is None:
+            st.start_t = self._clock()
+            if req.prefill_start_t is None:
+                # a decode-preempted request re-prefilling keeps its first
+                # stamp: the TTFT split describes the road to the FIRST
+                # token only
+                req.prefill_start_t = st.start_t
+        step_fn = cached_chunk_prefill_step(m.cfg, padded, st.staging_len)
+        logits, st.caches = step_fn(
+            m.params, torch.from_numpy(buf).to(self.device), st.caches,
+            start, size)
+        st.done += size
+        self.tracer.instant("prefill_chunk", rid=req.rid, start=start,
+                            tokens=size)
+        if st.finished:
+            st.logits = logits
+        return size
+
+    def _finish_prefill(self, req: Request, st: PrefillProgress) -> None:
+        """Last chunk done: install the staging cache's non-shared blocks
+        into the arena's pages (int8 tenants quantized first), emit the
+        first token, and hand the request to the decode batch."""
+        m = self.models[req.model]
+        tok = self._pick_token(req, st.logits[0])
+        source = cached_stage_quantize(m.cfg, st.staging_len)(st.caches)
+        self.arenas[req.model].finish_stage(req.slot, source, tok, st.tokens)
+        del self._prefills[req.rid]
+        req.status = RequestStatus.RUNNING
+        self.tracer.request_phase(req.rid, "running",
+                                  tokens_skipped=st.skipped)
+        req.generated.append(tok)
+        req.note_token(self._clock())
+        if req.first_token_t is None:
+            req.first_token_t = self._clock()
+        if req.done:
+            self._finish(req)
+
+    def _preempt_prefill(self, req: Request) -> None:
+        """Mid-prefill preemption: release the row and any reserved pages,
+        keep the PrefillProgress (staging is per-request memory, not
+        pool), and requeue at the head — readmission resumes at the last
+        completed chunk."""
+        self.arenas[req.model].evict(req.slot)
+        req.slot = None
+        req.preemptions += 1
+        self.metrics.record_preemption()
+        self.scheduler.requeue(req)
+        self.tracer.request_phase(req.rid, "preempted")
+        self._note_requeue(req, "prefill page exhaustion")
+
+    def _pump_prefills(self, allowed) -> tuple:
+        """One step of chunked-prefill work: admit queued requests into
+        staging, then advance in-flight prefills (FIFO by rid) under the
+        scheduler's prefill-token budget.  Returns (prefills completed,
+        prompt tokens computed, chunks run, cache-hit tokens skipped) —
+        hit tokens never touch the budget."""
+        hit_tokens = self._admit_staged(allowed)
+        budget = self.scheduler.prefill_token_budget()
+        n_done = tokens = chunks = 0
+        for rid in sorted(self._prefills):
+            req = self.requests[rid]
+            if (req.status is not RequestStatus.PREFILLING
+                    or req.model not in allowed):
+                continue
+            while not self._prefills[rid].finished and tokens < budget:
+                n = self._run_chunk(req, self._prefills[rid])
+                if n < 0:
+                    break
+                tokens += n
+                chunks += 1
+            if (req.status is RequestStatus.PREFILLING
+                    and self._prefills[rid].finished):
+                self._finish_prefill(req, self._prefills[rid])
+                n_done += 1
+        return n_done, tokens, chunks, hit_tokens
+
     def _can_progress(self, name: str) -> bool:
         """A tenant runs this step only if it can generate tokens: it has
         active rows, or a queued request it could admit (free row, global
         budget headroom, enough pages)."""
         arena = self.arenas[name]
         if arena.active_slots():
+            # includes PREFILLING rows: the tenant must be scheduled (and
+            # weight-resident) for its chunks to advance
             return True
         if arena.n_free == 0:
             return False
@@ -379,20 +607,34 @@ class ServingEngine:
                 decodable, wire, work = self._pump_installs(run_models,
                                                             demand)
         with self.tracer.span("prefill"):
-            n_prefills, prefill_tokens = self._admit(set(decodable))
+            if self._chunk > 0:
+                n_prefills, prefill_tokens, n_chunks, hit_tokens = (
+                    self._pump_prefills(set(decodable)))
+            else:
+                n_prefills, prefill_tokens = self._admit(set(decodable))
+                n_chunks = hit_tokens = 0
 
         n_decoded = sample_syncs = 0
         for name in decodable:
             m = self.models[name]
             arena = self.arenas[name]
+
+            def decoding(slot) -> bool:
+                # PREFILLING rows hold a row and reserved pages but are not
+                # in the decode batch yet: the batched step still computes
+                # their row, whose write lands in the scratch page and
+                # whose output is discarded here
+                s = self.requests[arena.owner_of(slot)].status
+                return s is RequestStatus.RUNNING
+
             # extend tables across page boundaries and COW shared pages
             # before the step writes; pool exhaustion preempts (the request
             # re-prefills once pages free up)
             with self.tracer.span("page", tenant=name):
                 for slot in arena.active_slots():
-                    if not arena.prepare_decode(slot):
+                    if decoding(slot) and not arena.prepare_decode(slot):
                         self.preempt(arena.owner_of(slot))
-            slots = arena.active_slots()
+            slots = [s for s in arena.active_slots() if decoding(s)]
             if not slots:
                 continue
             temps, tks, keys, steps = self._sample_inputs(arena)
@@ -425,7 +667,8 @@ class ServingEngine:
         with self.tracer.span("bookkeep"):
             tokens_out = n_decoded + n_prefills
             stall = (bool(run_models) and len(decodable) < len(run_models)
-                     and tokens_out == 0 and prefill_tokens == 0)
+                     and tokens_out == 0 and prefill_tokens == 0
+                     and hit_tokens == 0)
             if stall:
                 # the step produced nothing because the scheduled tenant sat
                 # waiting on installs — don't charge it a decode-slice step
@@ -454,6 +697,8 @@ class ServingEngine:
             overlap_hidden_bytes=work if tokens_out > 0 else 0,
             install_stall=stall,
             prefill_tokens=prefill_tokens,
+            n_prefill_chunks=n_chunks,
+            prefix_hit_tokens=hit_tokens,
             prefix_cached_pages=cached,
             sample_syncs=sample_syncs,
             component_s=self.tracer.step_components()))
@@ -472,11 +717,16 @@ class ServingEngine:
             if max_steps is not None and self._step_no >= max_steps:
                 break
             before = self.metrics.tokens_generated
+            chunks_before = self.metrics.prefill_tokens
+            hits_before = self.metrics.prefix_hit_tokens
             ticks_before = self.pipeline.pumped_ticks if self.pipeline else 0
             self.step()
-            progressed = (self.metrics.tokens_generated != before
-                          or (self.pipeline is not None
-                              and self.pipeline.pumped_ticks != ticks_before))
+            progressed = (
+                self.metrics.tokens_generated != before
+                or self.metrics.prefill_tokens != chunks_before
+                or self.metrics.prefix_hit_tokens != hits_before
+                or (self.pipeline is not None
+                    and self.pipeline.pumped_ticks != ticks_before))
             stall = 0 if progressed else stall + 1
             if stall > 3:
                 raise RuntimeError(
@@ -490,7 +740,8 @@ class ServingEngine:
             self._wall_s if wall_s is None else wall_s,
             residency=self.residency.stats.as_dict(),
             rejected=self.scheduler.rejected,
-            paging=self._paging_stats())
+            paging=self._paging_stats(),
+            prefill_cache=prefill_cache_info() if self._chunk > 0 else None)
 
     def _paging_stats(self) -> Dict[str, float]:
         """Paged-arena stats summed over tenants.  Each shared-page hit is

@@ -12,14 +12,18 @@ block page tables, prefix sharing, and COW.
     (the prefill cache layout with the batch axis reinterpreted as the
     page axis) plus per-row decode state.  Requests address their KV
     through an `(n_rows, n_pages)` page-table array consumed by the paged
-    decode path in `nn/attention.py`.
+    decode path in `nn/attention.py`.  A chunked prefill stages its row
+    (`stage`), reserves pages chunk by chunk (`grow`), seeds its staging
+    cache from shared prefix pages (`load_prefix`, `page_read`) and
+    installs the rest at its last chunk (`finish_stage`).
 
 Device page 0 is reserved as a scratch page: inactive decode rows keep
 all-zero page tables, so their (discarded) decode writes land in the
 scratch page instead of corrupting a reallocated neighbor.
 
-Pool writes (page install, COW copy, decode append) update the pools in
-place; the reference donates the pools to a jitted function instead.
+Pool and staging writes (page install, staged install, COW copy, decode
+append, prefix read-back) update their tensors in place; the reference
+donates them to a jitted function instead.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.nn.attention import _kv_dequant
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.transformer import layer_kind, stack_plan
 from repro_torch.serving.prefix_cache import RadixPrefixCache
@@ -188,6 +193,35 @@ class PageAllocator:
         self.tables[rid] = table
         return table, len(shared)
 
+    def begin_table(self, rid: int, tokens: Tuple[int, ...]) -> int:
+        """Chunked-prefill admission: open rid's table with just the shared
+        prefix pages (refcounted now — sharing is checked against the whole
+        prompt, which is known up front).  Fresh pages for the non-shared
+        tail are reserved chunk by chunk through grow_table; a reservation
+        that loses the race to decode neighbors fails cleanly there.
+        Returns the number of shared pages."""
+        if rid in self.tables:
+            raise ValueError(f"rid {rid} already holds a table")
+        shared = self.match_prefix(tokens)
+        for page in shared:
+            self._pin(page)
+        self.tables[rid] = list(shared)
+        return len(shared)
+
+    def grow_table(self, rid: int, n_blocks: int) -> bool:
+        """Reserve fresh pages until rid's table covers `n_blocks` blocks
+        (one prefill chunk's worth at a time).  False with *no side effects*
+        when the pool cannot cover the growth — the caller preempts the
+        prefill, which resumes at its last completed chunk."""
+        need = n_blocks - len(self.tables[rid])
+        if need <= 0:
+            return True
+        if need > self.n_free + self.evictable_pages():
+            return False
+        self.ensure_free(need)
+        self.tables[rid].extend(self._take_page() for _ in range(need))
+        return True
+
     def extend(self, rid: int) -> Optional[int]:
         """Append one fresh page to rid's table (decode crossed a page
         boundary), LRU-evicting a retained page if the free list is empty.
@@ -277,6 +311,30 @@ def page_write(cfg: ModelConfig, pool, one, block: int, page: int) -> None:
         tree_map(upd, seg_pool, seg_one)
 
 
+def page_read(cfg: ModelConfig, one, pool, block: int, page: int) -> None:
+    """Copy physical page `page` of the pool into logical block `block` of
+    a batch-1 staging cache `one`, in place: the inverse of `page_write`
+    (the reference's `_cached_page_read`).  bf16 pools copy bit for bit;
+    int8 pools dequantize the page's codes with its per-(token, head)
+    scales into the raw staging K/V, so a reloaded prefix carries the
+    quantization error decode attends after install."""
+    int8 = cfg.kv_cache_dtype == "int8"
+    for seg_one, seg_pool, (_, _, scanned) in zip(one, pool,
+                                                  stack_plan(cfg)):
+        po, pa = seg_one["attn"], seg_pool["attn"]
+        for f in ("k", "v"):
+            if scanned:   # pool (L, P, ps, ...), staging (L, 1, Lbuf, ...)
+                src, dst = pa[f][:, page], po[f][:, 0]
+                scale = pa[f + "_scale"][:, page] if int8 else None
+            else:         # pool (P, ps, ...), staging (1, Lbuf, ...)
+                src, dst = pa[f][page], po[f][0]
+                scale = pa[f + "_scale"][page] if int8 else None
+            if int8:
+                src = _kv_dequant(src, scale, dst.dtype)
+            ps = src.shape[-3]
+            dst[..., block * ps:(block + 1) * ps, :, :] = src
+
+
 def page_copy(cfg: ModelConfig, pool, src: int, dst: int) -> None:
     """COW page copy: pool page `src` -> pool page `dst`, in place (the
     reference's `_cached_page_copy`)."""
@@ -316,6 +374,10 @@ class PagedKVArena:
         self.n_rows = n_rows
         self.page_size = page_size
         self.prefix_cache = bool(prefix_cache)
+        # chunk-skip reloads pool pages into the staging carry-in (int8
+        # pools dequantize on the way out, `page_read`), so every tenant
+        # with the prefix cache on skips covered chunks
+        self.skip_ok = self.prefix_cache
         self.allocator = PageAllocator(
             n_pages, page_size, retain=self.prefix_cache,
             max_cached=(prefix_cache_pages or None) if prefix_cache
@@ -418,6 +480,70 @@ class PagedKVArena:
         for i in range(self._n_shared[rid], len(table)):
             page_write(self.cfg, self.caches, one_caches, i, table[i])
         self.allocator.register(rid, tuple(tokens))
+        self.pos[row] = len(tokens)
+        self.last_token[row] = first_token
+
+    # --------------------------------------------- chunked-prefill staging
+    def stage(self, rid: int, tokens: Tuple[int, ...]) -> Optional[int]:
+        """Chunked-prefill admission: claim a decode row and open a
+        chunk-granular page reservation (shared prefix pages refcounted
+        now, fresh pages reserved per chunk through grow()).  The row's
+        page table stays aimed at the scratch page until finish_stage: the
+        batched decode step computes this row meanwhile, and its write must
+        land in the scratch page, not in reserved real pages."""
+        if not self._free_rows:
+            return None
+        n_shared = self.allocator.begin_table(rid, tuple(tokens))
+        row = self._free_rows.popleft()
+        self.owner[row] = rid
+        self._n_shared[rid] = n_shared
+        self.tables_np[row, :] = 0
+        self.pos[row] = 0
+        self.last_token[row] = 0
+        return row
+
+    def grow(self, rid: int, n_blocks: int) -> bool:
+        """Reserve pages for the next prefill chunk; False = pool exhausted
+        (the engine preempts the prefill, staging intact)."""
+        return self.allocator.grow_table(rid, n_blocks)
+
+    def covered_tokens(self, rid: int, n_tokens: int) -> int:
+        """Prompt tokens of rid covered by its shared (cached or live)
+        prefix pages — the ceiling for chunk-skip.  An exact-tuple tail
+        match shares a partial page, so the cover is capped at the
+        prompt itself."""
+        return min(self._n_shared.get(rid, 0) * self.page_size, n_tokens)
+
+    def load_prefix(self, rid: int, staging: Any, n_tokens: int) -> Any:
+        """Seed a staging cache, in place, with rid's shared prefix pages
+        covering its first `n_tokens` positions: every page overlapping
+        [0, n_tokens) is read whole.  Positions >= n_tokens are recomputed
+        (overwritten) by the next chunk.  Returns the staging."""
+        table = self.allocator.tables[rid]
+        n_blocks = -(-n_tokens // self.page_size)
+        if n_blocks > self._n_shared.get(rid, 0):
+            raise ValueError("load_prefix beyond the shared prefix")
+        for i in range(n_blocks):
+            page_read(self.cfg, staging, self.caches, i, table[i])
+        return staging
+
+    def finish_stage(self, row: int, staging: Any, first_token: int,
+                     tokens: Tuple[int, ...]) -> None:
+        """Last chunk done: write the staged K/V (the install source: int8
+        tenants' quantized) into the reserved pages that are not shared
+        with the prefix tree (shared pages already hold the same values),
+        publish the prefix, point the row's page table at the real pages,
+        and arm decode state."""
+        rid = self.owner[row]
+        table = self.allocator.tables[rid]
+        if len(table) != self.blocks_for(len(tokens)):
+            raise ValueError("finish_stage before the table covered the "
+                             "prompt")
+        for i in range(self._n_shared[rid], len(table)):
+            page_write(self.cfg, self.caches, staging, i, table[i])
+        self.allocator.register(rid, tuple(tokens))
+        self.tables_np[row, :] = 0
+        self.tables_np[row, :len(table)] = table
         self.pos[row] = len(tokens)
         self.last_token[row] = first_token
 
