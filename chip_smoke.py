@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the last line):
   2. hold each kernel against its plain PyTorch version at the shapes its
      path gives it and at the shapes its design finds hard (paged: stale
      garbage past every row's position, G 1 to 16, head dims 8 to 256,
-     rows of 8,192 tokens, timed cold; flash: every native head dim and
+     rows of 8,192 tokens, timed cold, phase 8's page views of contiguous
+     caches; flash: every native head dim and
      the zero-padded ones, GQA up to G 16, ragged, causal and full, S 512
      and 1000, the streaming B 4 x S 512; the f32 attention kernels
      against plain versions whose products stay in full f32, paged at 3e-4
@@ -24,8 +25,8 @@ Phases (any failure exits non-zero before the last line):
      that is not a multiple of 16 at M < 64), and time kernel, plain
      version and the PyTorch
      library call where one computes the same function;
-  3. serve requests through the port's engine at gemma-7b's full width
-     (28 layers, seeded random weights), counting kernel launches;
+  3. serve requests through the port's paged engine at gemma-7b's full
+     width (28 layers, seeded random weights), counting kernel launches;
   4. hold the first decode step's logits computed with the kernels against
      the same step through the plain versions, on the card, and profile a
      few decode steps and the longest prompt's prefill step (host wall
@@ -54,7 +55,21 @@ Phases (any failure exits non-zero before the last line):
      1,024-token shared prefix, the first run alone, warm (prefix cache
      on) and cold (off): 3 x 1,024 hit tokens warm, 0 cold, prompt
      tokens computed 3 x 1,024 apart, the same greedy tokens;
-  8. print the `kernels` JSON line, then the result line.
+  8. the slot KV layout, the reference's default, at gemma-7b's full
+     width: phase 3's requests through one slot tenant (8 slots of 552 =
+     512 + 32 + 8 tokens; the decode attention is the paged kernel over
+     each slot seen as 69 pages of 8 tokens): 28 paged launches a decode
+     batch, 224 flash launches, none of the other three kernels, every
+     first token equal to phase 3's; one slot decode step through the
+     kernels against the plain versions, profiled; the launcher's default
+     mode (prefill-then-greedy, batch 4 x 512 tokens, 32 new) through the
+     function the CLI calls, then its prefill and every decode step rerun
+     on its tokens through the kernels and through the plain versions,
+     logits held within LOGIT_TOL; and the CLI's
+     default `--engine` at smoke size in a subprocess (two tenants through
+     n_layers + 1 weight slots, virtual clock, trace and metrics files
+     checked, one pulse_count launch per residency pair cost);
+  9. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -127,6 +142,21 @@ PAGED_UNTIMED = [(D, heads, 8, 20)
                  for D in (8, 16, 24, 80)
                  for heads in ((4, 4), (25, 5), (56, 8), (32, 2))] + [
     (80, (16, 16), 16, 64), (256, (16, 16), 8, 9), (128, (64, 4), 4, 300)]
+# paged decode, untimed: phase 8's page views of contiguous caches — the
+# default mode's (4 rows of 544 tokens, 64 (row, KV head) pairs, one
+# position for every row, first and last of its loop) and the slot
+# engine's (8 slots of 552 tokens as 69 pages of 8)
+PAGED_PATH_SHAPES = {
+    "default mode B4 Hkv16 G1 D256 page16 T34 pos 512": dict(
+        B=4, H=16, Hkv=16, D=256, page=16, T=34, seed=10,
+        pos_list=[512] * 4),
+    "default mode B4 Hkv16 G1 D256 page16 T34 pos 542": dict(
+        B=4, H=16, Hkv=16, D=256, page=16, T=34, seed=11,
+        pos_list=[542] * 4),
+    "slot B8 Hkv16 G1 D256 page8 T69": dict(
+        B=8, H=16, Hkv=16, D=256, page=8, T=69, seed=12,
+        pos_list=[32, 100, 200, 290, 370, 450, 520, 551]),
+}
 # paged decode, untimed: tables so long and grids so wide (320 (row, KV
 # head) pairs) that each row is one split whose page ids slide through
 # the kernel's shared-memory window, a page of 1 and one of 12 (not a
@@ -552,7 +582,7 @@ def serve(torch, cfg, params, requests, page):
     n_pages = len(requests) * -(-max_seq // page)
     eng = ServingEngine(
         [EngineModel("gemma-7b", params, cfg, kv_slots=8, max_seq=max_seq,
-                     page_size=page, n_pages=n_pages)],
+                     kv_layout="paged", page_size=page, n_pages=n_pages)],
         sched=SchedulerConfig(max_prefill_per_step=4), device="cuda")
     for prompt, n_new, sampling in requests:
         eng.submit("gemma-7b", prompt, max_new_tokens=n_new, **sampling)
@@ -599,20 +629,27 @@ def serve(torch, cfg, params, requests, page):
 
 
 # ------------------------------------------------------------ phase 4
+def plain_attention():
+    """A patch that swaps both attention wrappers for their plain
+    versions, on the card."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    from repro_torch.nn import attention as attn_mod
+    return mock.patch.multiple(
+        attn_mod, paged_attention=lambda *a: paged_attention_plain(*a),
+        flash_attention=lambda q, k, v, causal: flash_attention_plain(
+            q, k, v, causal))
+
+
 def first_step_logits(torch, cfg, params, requests, page):
     """Prefill the prompts into a fresh arena, then run the first batched
     decode step twice on identical pools: through the kernels, and with
     both wrappers swapped for their plain versions.  Prefill logits are
     compared the same way."""
-    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
     from repro_torch.launch.steps import paged_serve_step, prefill_step
-    from repro_torch.nn import attention as attn_mod
     from repro_torch.serving.paging import PagedKVArena
     from repro_torch.tree import tree_leaves
-    plain = mock.patch.multiple(attn_mod, paged_attention=lambda *a: (
-        paged_attention_plain(*a)), flash_attention=lambda q, k, v, causal: (
-        flash_attention_plain(q, k, v, causal)))
+    plain = plain_attention()
     max_seq = max(len(p) + n for p, n, _ in requests)
     arena = PagedKVArena(cfg, 8, 8 * -(-max_seq // page), page,
                          device="cuda")
@@ -968,7 +1005,8 @@ def two_tenant_run(torch, cfg, tenants, slots, requests, **engine_kw):
     t0 = time.perf_counter()
     eng = ServingEngine(
         [EngineModel(name, params, cfg, kv_slots=4, max_seq=max_seq,
-                     page_size=16) for name, params in tenants.items()],
+                     kv_layout="paged", page_size=16)
+         for name, params in tenants.items()],
         weight_arena_slots=slots,
         sched=SchedulerConfig(max_prefill_per_step=4,
                               model_turn_steps=TURN_STEPS),
@@ -1219,7 +1257,7 @@ def chunked_engine(torch, cfg, params, max_seq, n_pages, prefix_cache):
                                      ServingEngine)
     eng = ServingEngine(
         [EngineModel("gemma-7b", params, cfg, kv_slots=8, max_seq=max_seq,
-                     page_size=16, n_pages=n_pages,
+                     kv_layout="paged", page_size=16, n_pages=n_pages,
                      prefix_cache=prefix_cache)],
         sched=SchedulerConfig(max_prefill_per_step=4,
                               prefill_token_budget=CHUNK_BUDGET),
@@ -1429,6 +1467,298 @@ def chunked_prefill(torch, cfg, params, requests, mono_tokens):
     return launches
 
 
+# ------------------------------------------------------------ phase 8
+SLOT_MAX_SEQ = 552             # the CLI's max_seq at --prompt-len 512 --gen 32
+GREEDY = dict(smoke=False, batch=4, prompt_len=512, gen=32)   # its run
+
+
+def slot_serve(torch, cfg, params, requests, mono_tokens):
+    """Phase 3's requests through one slot tenant (8 slots of
+    SLOT_MAX_SEQ tokens), with the launch counts set to 0 just before the
+    run: 28 paged launches a decode batch, 28 flash launches a prefill,
+    none of delta_apply, pulse_count or crossbar_mvm (one tenant, resident
+    before the run), every first token (the prefill's) equal to phase 3's.
+    Returns the launches of all five kernels."""
+    from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
+    from repro_torch.kernels.delta_apply.ops import apply_delta
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.pulse_count.ops import pulse_count
+    from repro_torch.serving import (EngineModel, SchedulerConfig,
+                                     ServingEngine, format_summary)
+    from repro_torch.tree import tree_leaves
+    eng = ServingEngine(
+        [EngineModel("gemma-7b", params, cfg, kv_slots=8,
+                     max_seq=SLOT_MAX_SEQ)],
+        sched=SchedulerConfig(max_prefill_per_step=4), device="cuda")
+    arena_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(eng.arenas["gemma-7b"].caches))
+    for prompt, n_new, sampling in requests:
+        eng.submit("gemma-7b", prompt, max_new_tokens=n_new, **sampling)
+    eng.residency.ensure("gemma-7b", 0)       # set-up, as in phase 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    summary = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_attention": flash_attention.launches,
+                "delta_apply": apply_delta.launches,
+                "pulse_count": pulse_count.launches,
+                "crossbar_mvm": crossbar_mvm.launches}
+    reqs = list(eng.requests.values())
+    if not all(r.status.value == "finished"
+               and len(r.generated) == r.max_new_tokens
+               and all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+        raise AssertionError("slot: not every request finished inside the "
+                             "vocab: " + ", ".join(
+                                 f"{r.rid}:{r.status.value}:"
+                                 f"{len(r.generated)}" for r in reqs))
+    decode_batches = sum(1 for st in eng.metrics.steps if st.n_decoded)
+    prefills = sum(st.n_prefills for st in eng.metrics.steps)
+    want = {"paged_attention": cfg.n_layers * decode_batches,
+            "flash_attention": cfg.n_layers * prefills,
+            "delta_apply": 0, "pulse_count": 0, "crossbar_mvm": 0}
+    if launches != want or prefills != len(requests):
+        raise AssertionError(f"slot: launches {launches}, want {want} "
+                             f"({prefills} prefills)")
+    first = [r.generated[0] == mono_tokens[r.rid][0] for r in reqs]
+    identical = sum(r.generated == mono_tokens[r.rid] for r in reqs)
+    tokens = sum(len(r.generated) for r in reqs)
+    same = sum(a == b for r in reqs
+               for a, b in zip(r.generated, mono_tokens[r.rid]))
+    parted = [next((i for i, (a, b) in enumerate(
+        zip(r.generated, mono_tokens[r.rid])) if a != b), None)
+        for r in reqs]
+    log(format_summary(summary))
+    log(f"slot engine: {len(reqs)} requests, {tokens} tokens in {wall:.3f} "
+        f"s = {tokens / wall:.1f} tok/s; {len(eng.metrics.steps)} steps, "
+        f"{decode_batches} decode batches, {prefills} prefills; arena "
+        f"{arena_bytes:,} B (8 slots x {SLOT_MAX_SEQ} tokens); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{json.dumps(launches)}")
+    log(f"slot engine vs phase 3 (paged): first tokens equal in "
+        f"{sum(first)} of {len(reqs)} requests; {identical} requests "
+        f"identical, {same} of "
+        f"{tokens} tokens equal position by position; first differing token "
+        f"by request {parted} (0 = the prefill's token)")
+    if not all(first):
+        raise AssertionError("slot: a first token differs from phase 3's")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slot_first_step(torch, cfg, params, requests):
+    """The 8 prompts prefilled into a fresh slot arena, then its first
+    batched decode step through the kernels and through the plain
+    versions, on identical caches: logits within LOGIT_TOL of the logit
+    scale.  Then the step is profiled."""
+    from repro_torch.launch.steps import cached_serve_step, prefill_step
+    from repro_torch.serving import KVArena
+    from repro_torch.tree import tree_leaves
+    arena = KVArena(cfg, 8, SLOT_MAX_SEQ, device="cuda")
+    for rid, (prompt, _, _) in enumerate(requests[:8]):
+        slot = arena.alloc(rid)
+        logits, one = prefill_step(params, torch.tensor([prompt],
+                                                        device="cuda"),
+                                   cfg, SLOT_MAX_SEQ)
+        arena.install(slot, one, int(logits[0, :cfg.vocab].argmax()),
+                      len(prompt))
+    saved = [t.clone() for t in tree_leaves(arena.caches)]
+    tok, pos = arena.decode_inputs()
+    serve_step = cached_serve_step(cfg)
+    k_logits, _ = serve_step(params, tok, arena.caches, pos)
+    for t, s in zip(tree_leaves(arena.caches), saved):
+        t.copy_(s)
+    with plain_attention():
+        p_logits, _ = serve_step(params, tok, arena.caches, pos)
+    for t, s in zip(tree_leaves(arena.caches), saved):
+        t.copy_(s)
+    del saved
+    k32, p32 = (x.float()[:, :cfg.vocab] for x in (k_logits, p_logits))
+    if not (torch.isfinite(k32).all() and k32.shape == (8, cfg.vocab)):
+        raise AssertionError("slot decode logits not finite / wrong shape")
+    err = (k32 - p32).abs().max().item()
+    scale = p32.abs().max().item()
+    agree = (k32.argmax(-1) == p32.argmax(-1)).float().mean().item()
+    log(f"slot decode step (8 slots of {SLOT_MAX_SEQ}, positions "
+        f"{sorted(pos.tolist())}), kernels vs plain: logits max abs err "
+        f"{err:.4g} (logit scale {scale:.4g}, tolerance {LOGIT_TOL:.0%} of "
+        f"it), greedy agreement {agree:.3f}")
+    if not err <= LOGIT_TOL * scale:
+        raise AssertionError("slot decode logits: kernels and plain "
+                             "versions differ beyond the tolerance")
+    profile_step(torch, lambda: serve_step(params, tok, arena.caches, pos),
+                 5,
+                 f"slot decode step (8 rows, {cfg.n_layers} layers)",
+                 cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3)
+    del arena
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def greedy_vs_plain(torch, cfg, params, toks):
+    """The default mode's prefill and every decode step of its loop, run
+    again twice on its own inputs (`make_batch`'s tokens, then `toks`, the
+    loop's tokens, fed back at positions prompt_len + i): through the
+    kernels, and with both wrappers swapped for their plain versions, each
+    on its own caches.  Every step's logits within LOGIT_TOL of the logit
+    scale; so the page view of the default mode's cache (p 16, T 34, one
+    position for every row) is held at each of the loop's positions.
+    Returns (max abs err, logit scale, greedy agreement, tokens of the
+    kernels' rerun equal to the loop's)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.steps import cached_prefill_step, cached_serve_step
+    B, S, gen = GREEDY["batch"], GREEDY["prompt_len"], GREEDY["gen"]
+    tokens = torch.as_tensor(make_batch(cfg, DataConfig(
+        seq_len=S, global_batch=B), 0)["tokens"], device="cuda")
+    fed = torch.as_tensor(toks, device="cuda")
+    prefill, step = cached_prefill_step(cfg, S + gen), cached_serve_step(cfg)
+
+    def run():
+        logits, caches = prefill(params, tokens)
+        out = [logits.float()]
+        for i in range(gen - 1):
+            logits, caches = step(params, fed[:, i], caches, S + i)
+            out.append(logits.float())
+        return torch.stack(out, 1)
+
+    k32 = run()
+    with plain_attention():
+        p32 = run()
+    if not (torch.isfinite(k32).all()
+            and k32.shape == (B, gen, cfg.vocab_padded)):
+        raise AssertionError("default mode logits not finite / wrong shape")
+    err = (k32 - p32).abs().max().item()
+    scale = p32.abs().max().item()
+    agree = (k32.argmax(-1) == p32.argmax(-1)).float().mean().item()
+    same = int((k32.argmax(-1) == fed.long()).sum())
+    return err, scale, agree, same
+
+
+def default_mode(torch, cfg, params):
+    """The launcher without a mode flag (`serve.run_greedy`, the function
+    its CLI calls) on `params`: one B x S prefill, gen - 1 greedy decode
+    steps at a scalar position, launch counts set to 0 just before and
+    read just after; then every step's logits held against the plain
+    versions (`greedy_vs_plain`).  Returns the launches."""
+    import argparse
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch import serve
+    args = argparse.Namespace(arch="gemma-7b", device="cuda", **GREEDY)
+    zero_launch_counts()
+    toks, t_prefill, t_decode = serve.run_greedy(args, params)
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_attention": flash_attention.launches}
+    want = {"paged_attention": cfg.n_layers * (GREEDY["gen"] - 1),
+            "flash_attention": cfg.n_layers}
+    if launches != want or toks.shape != (GREEDY["batch"], GREEDY["gen"]) \
+            or not ((0 <= toks) & (toks < cfg.vocab_padded)).all():
+        raise AssertionError(f"default mode: launches {launches}, want "
+                             f"{want}; tokens {toks.shape}")
+    log(f"default mode (batch {GREEDY['batch']} x {GREEDY['prompt_len']} "
+        f"tokens, {GREEDY['gen']} new): prefill {t_prefill * 1e3:.1f} ms, "
+        f"{GREEDY['gen'] - 1} decode steps {t_decode * 1e3:.1f} ms "
+        f"({(GREEDY['gen'] - 1) / t_decode:.2f} steps/s, "
+        f"{(GREEDY['gen'] - 1) * GREEDY['batch'] / t_decode:.1f} tok/s); "
+        f"launches {json.dumps(launches)}")
+    err, scale, agree, same = greedy_vs_plain(torch, cfg, params, toks)
+    log(f"default mode, prefill and {GREEDY['gen'] - 1} decode steps on the "
+        f"loop's tokens, kernels vs plain: logits max abs err {err:.4g} "
+        f"(logit scale {scale:.4g}, tolerance {LOGIT_TOL:.0%} of it), "
+        f"greedy agreement {agree:.3f}; the kernels' rerun picks the loop's "
+        f"token in {same} of {toks.size}")
+    if not err <= LOGIT_TOL * scale:
+        raise AssertionError("default mode logits: kernels and plain "
+                             "versions differ beyond the tolerance")
+    return launches
+
+
+# runs `--engine` as the CLI does (its own parser and `_run_engine`) and
+# prints the kernel launches and the residency's pair costs of the run
+CLI_RUNNER = """
+import json, sys
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.pulse_count.ops import pulse_count
+from repro_torch.launch import serve
+eng = serve._run_engine(serve._parser().parse_args(sys.argv[1:]))
+print(json.dumps({"pair_costs": len(eng.residency._cost_cache),
+                  "decode_batches": sum(1 for s in eng.metrics.steps
+                                        if s.n_decoded),
+                  "paged_attention": paged_attention.launches,
+                  "flash_attention": flash_attention.launches,
+                  "pulse_count": pulse_count.launches}))
+"""
+
+
+def default_cli(torch):
+    """`python -m repro_torch.launch.serve --engine --smoke --virtual-clock
+    --trace-out T --metrics-json M` in a subprocess, through the CLI's own
+    parser and engine run: exit 0, a trace and a metrics file that parse,
+    every request's lifecycle queued ... finished, and one pulse_count
+    launch per residency pair cost.  Returns the subprocess's launches."""
+    import tempfile
+    from repro_torch.configs import get_config
+    smoke = get_config("gemma-7b", smoke=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, metrics = (os.path.join(tmp, n) for n in ("t.json",
+                                                          "m.json"))
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", CLI_RUNNER, "--engine", "--smoke",
+             "--virtual-clock", "--trace-out", trace, "--metrics-json",
+             metrics], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"default CLI exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        lines = run.stdout.strip().splitlines()
+        counts = json.loads(lines[-1])
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        with open(metrics) as f:
+            doc = json.load(f)
+    for line in lines[:-1]:
+        log(f"  | {line}")
+    phases = {}
+    for e in events:
+        if e.get("pid") == 1 and e["ph"] != "M" \
+                and not e["name"].endswith(":enter"):
+            phases.setdefault(e["tid"], []).append(e["name"])
+    summary = doc["summary"]
+    n_req = int(summary["requests_finished"])
+    balanced = all(p[0] == "queued" and p[-1] == "finished"
+                   for p in phases.values())
+    want = {"paged_attention": smoke.n_layers * counts["decode_batches"],
+            "pulse_count": counts["pair_costs"]}
+    launches = {k: counts[k] for k in ("paged_attention", "flash_attention",
+                                       "pulse_count")}
+    log(f"default CLI (--engine --smoke --virtual-clock, slot layout, two "
+        f"tenants through {smoke.n_layers + 1} weight slots): exit 0 in "
+        f"{wall:.1f} s; {len(events)} trace events, {len(phases)} request "
+        f"lifecycles balanced {balanced}; {n_req} requests finished, "
+        f"{int(summary['installs'])} installs "
+        f"({int(summary['cross_tenant_installs'])} cross-tenant), "
+        f"{counts['pair_costs']} residency pair costs; launches "
+        f"{json.dumps(launches)}")
+    if not (balanced and len(phases) == n_req == 10
+            and all(counts[k] == v for k, v in want.items())
+            and counts["pulse_count"] > 0):
+        raise AssertionError(f"default CLI: {n_req} requests, lifecycles "
+                             f"balanced {balanced}, counts {counts}, want "
+                             f"{want}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1490,6 +1820,9 @@ def main() -> int:
     err = check_paged(torch, B=3, H=4, Hkv=2, D=32, page=4, T=6, seed=4,
                       timed=False)[0]
     log(f"paged_attention B3 Hkv2 G2 D32 page4 T6: err {err:.3g}")
+    for label, shape in PAGED_PATH_SHAPES.items():
+        err = check_paged(torch, **shape, timed=False)[0]
+        log(f"paged_attention {label}: err {err:.3g}")
     plans = check_split_plan(torch)
     log(f"paged_attention split plans (splits, pages per split) of the "
         f"long tables: {plans}")
@@ -1676,7 +2009,16 @@ def main() -> int:
     log(f"phase 7 (chunked prefill, prefix cache): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # phase 8: report
+    # phase 8: the slot layout and the launcher's default mode
+    t0 = time.perf_counter()
+    slot_launches = slot_serve(torch, cfg, params, requests, mono_tokens)
+    slot_first_step(torch, cfg, params, requests)
+    greedy_launches = default_mode(torch, cfg, params)
+    cli_launches = default_cli(torch)
+    log(f"phase 8 (slot layout, default mode, default CLI): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 9: report
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1689,6 +2031,8 @@ def main() -> int:
          "bound_by": paged[PAGED_MAIN][4][1], "library_ms": None,
          "two_tenant_launches": t_launches["paged_attention"],
          "chunked_launches": c_launches["paged_attention"],
+         "slot_launches": slot_launches["paged_attention"],
+         "default_mode_launches": greedy_launches["paged_attention"],
          **f32_fields(errs32["paged"], paged32[PAGED_F32_MAIN], None),
          "f32_cold_ms_by_shape": {k: v[1] for k, v in paged32.items()}},
         {"name": "flash_attention", "route": "cuda",
@@ -1702,6 +2046,8 @@ def main() -> int:
          "library_ms": flash[1, 512][3],
          "two_tenant_launches": t_launches["flash_attention"],
          "chunked_launches": c_launches["flash_attention"],
+         "slot_launches": slot_launches["flash_attention"],
+         "default_mode_launches": greedy_launches["flash_attention"],
          **f32_fields(errs32["flash"], flash32[16], flash32[16][3]),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
          "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},
@@ -1713,7 +2059,8 @@ def main() -> int:
          "ms": delta[LAYER_CODES][1], "plain_ms": delta[LAYER_CODES][2],
          "bound_ms": delta[LAYER_CODES][4][0],
          "bound_by": delta[LAYER_CODES][4][1],
-         "library_ms": delta[LAYER_CODES][3]},
+         "library_ms": delta[LAYER_CODES][3],
+         "slot_launches": slot_launches["delta_apply"]},
         {"name": "pulse_count", "route": "cuda",
          "source": "src/repro_torch/kernels/pulse_count/csrc/pulse_count.cu",
          "replaces": "src/repro/kernels/pulse_count/kernel.py:32",
@@ -1722,14 +2069,16 @@ def main() -> int:
          "ms": pulses[LAYER_CODES][2], "plain_ms": pulses[LAYER_CODES][3],
          "bound_ms": pulses[LAYER_CODES][4][0],
          "bound_by": pulses[LAYER_CODES][4][1], "library_ms": None,
-         "two_tenant_launches": t_launches["pulse_count"]},
+         "two_tenant_launches": t_launches["pulse_count"],
+         "slot_launches": cli_launches["pulse_count"]},
         {"name": "crossbar_mvm", "route": "cuda",
          "source": "src/repro_torch/kernels/crossbar_mvm/csrc/"
                    "crossbar_mvm.cu",
          "replaces": "src/repro/kernels/crossbar_mvm/kernel.py:37",
          "launches": x_launches, "max_abs_err": xb[0], "ms": xb[1],
          "plain_ms": xb[2], "bound_ms": xb[4][0], "bound_by": xb[4][1],
-         "library_ms": xb[3]},
+         "library_ms": xb[3],
+         "slot_launches": slot_launches["crossbar_mvm"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,56 +1,95 @@
-"""Serving launcher of the port: the continuous-batching engine over two
-tenants with a paged KV cache, monolithic or chunked prefill (with the
-radix prefix cache's chunk skip) and fused sampling, tenant-b a perturbed
-variant of tenant-a, both behind one ARAS weight arena of
-`--weight-slots` layers (`--engine`); or one forward of the ARAS
-layer-streaming executor over `make_batch`'s tokens, whose arena holds
-only `--arena-slots` layers (`--streaming`).
+"""Serving launcher of the port, as `repro.launch.serve`: batched prefill
+then a greedy decode loop over `make_batch`'s tokens (no mode flag); the
+continuous-batching engine over two tenants (`--engine`), tenant-b a
+perturbed variant of tenant-a, both behind one ARAS weight arena of
+`--weight-slots` layers, with whole-sequence KV slots or a paged KV cache
+(`--kv-layout`), monolithic or chunked prefill (with the radix prefix
+cache's chunk skip on the paged layout), fused or split sampling, and a
+Chrome trace and metrics dump on request; or one forward of the ARAS
+layer-streaming executor, whose arena holds only `--arena-slots` layers
+(`--streaming`).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
+        --batch 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
         --arch gemma-7b --requests 8 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --engine --smoke \
-        --device cpu
+        --device cpu --virtual-clock --trace-out trace.json \
+        --metrics-json metrics.json
     PYTHONPATH=src python -m repro_torch.launch.serve --engine --smoke \
-        --device cpu --prefill-chunk 4 --prefix-cache
+        --device cpu --kv-layout paged --prefill-chunk 4 --prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --streaming \
         --arch gemma-7b --arena-slots 3 --batch 4 --prompt-len 512
-    PYTHONPATH=src python -m repro_torch.launch.serve --streaming --smoke \
-        --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import atexit
+import json
+import signal
+import sys
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
-from repro_torch.nn.model import init_params
+# serving before launch.steps: the steps module imports serving.sampling,
+# whose package imports the engine, which imports the steps
 from repro_torch.serving import (EngineModel, InstallCostModel,
-                                 SchedulerConfig, ServingEngine,
+                                 SchedulerConfig, ServingEngine, Tracer,
+                                 VirtualClock, drive_simulated,
                                  format_summary)
+from repro_torch.launch.steps import cached_prefill_step, cached_serve_step
+from repro_torch.nn.model import init_params
 from repro_torch.serving.variants import perturbed_variant
 
 
-def _run_engine(args) -> None:
-    """`repro.launch.serve --engine` on the paged layout: two tenants,
-    tenant-b a perturbed variant of tenant-a (the co-hosted fine-tune
-    regime where cross-tenant §V-C delta installs have real structure),
-    in a weight arena smaller than both tenants' layer sets, so a tenant
-    switch installs layers; requests alternate between the tenants."""
+def _json_safe(obj):
+    """NaN/inf -> None recursively, so metrics dumps are strict JSON."""
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, float) and not np.isfinite(obj):
+        return None
+    return obj
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def engine_setup(args, params=None):
+    """The `--engine` engine: two tenants, tenant-b a perturbed variant of
+    tenant-a (the co-hosted fine-tune regime where cross-tenant §V-C delta
+    installs have real structure), in a weight arena smaller than both
+    tenants' layer sets, so a tenant switch installs layers.  `params` are
+    tenant-a's (default: `init_params(cfg, seed=0)` on `args.device`).
+    --virtual-clock puts the engine, and the tracer that --trace-out asks
+    for, on one VirtualClock.  Returns (engine, clock)."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    base = init_params(cfg, seed=0, device=args.device)
+    if args.prefix_cache and args.kv_layout != "paged":
+        raise SystemExit("--prefix-cache needs --kv-layout paged "
+                         "(slot arenas have no pages to retain)")
+    base = (params if params is not None
+            else init_params(cfg, seed=0, device=args.device))
     variant = perturbed_variant(base)
     kv = dict(kv_slots=args.kv_slots, max_seq=args.prompt_len + args.gen + 8,
-              page_size=args.page_size, prefix_cache=args.prefix_cache,
+              kv_layout=args.kv_layout, page_size=args.page_size,
+              prefix_cache=args.prefix_cache,
               prefix_cache_pages=args.prefix_cache_pages)
     tenants = [EngineModel("tenant-a", base, cfg, **kv),
                EngineModel("tenant-b", variant, cfg, **kv)]
-    weight_slots = args.weight_slots or cfg.n_layers + 1
+    clock = VirtualClock() if args.virtual_clock else time.perf_counter
     eng = ServingEngine(
-        tenants, weight_arena_slots=weight_slots,
+        tenants, weight_arena_slots=args.weight_slots or cfg.n_layers + 1,
+        tracer=Tracer(clock=clock) if args.trace_out else None, clock=clock,
         sched=SchedulerConfig(max_prefill_per_step=4,
                               model_turn_steps=args.turn_steps,
+                              policy=args.queue_policy,
                               prefill_token_budget=(
                                   args.prefill_token_budget or None)),
         prefill_chunk=args.prefill_chunk,
@@ -60,26 +99,114 @@ def _run_engine(args) -> None:
         overlap_installs=args.overlap_installs,
         install_cost=InstallCostModel(
             bytes_per_tick=args.install_bytes_per_tick),
+        fuse_sampling=not args.no_fuse_sampling,
         device=args.device)
+    return eng, clock
+
+
+def _run_engine(args, params=None) -> ServingEngine:
+    """`repro.launch.serve --engine`: submit `--requests` random prompts,
+    alternating between the tenants (with --virtual-clock at Poisson
+    arrival times in simulated time, through `drive_simulated`), serve them
+    and print the summary.  The trace and the metrics dump are written
+    once: at the end, or at exit if the run is interrupted (Ctrl-C, or
+    SIGTERM turned into a normal exit)."""
+    eng, clock = engine_setup(args, params)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    names = list(eng.models)
+    done = {"flushed": False}
+
+    def flush() -> None:
+        if done["flushed"]:
+            return
+        done["flushed"] = True
+        if args.trace_out:
+            eng.tracer.export_chrome_trace(args.trace_out)
+            print(f"wrote Chrome trace ({len(eng.tracer.events)} events) to "
+                  f"{args.trace_out} — load in chrome://tracing or "
+                  "https://ui.perfetto.dev")
+        if args.metrics_json:
+            doc = {"summary": _json_safe(eng.summary()),
+                   "metrics": _json_safe(eng.metrics.registry.as_dict())}
+            with open(args.metrics_json, "w") as f:
+                json.dump(doc, f, indent=2, sort_keys=True)
+                f.write("\n")
+            print(f"wrote metrics registry + summary to {args.metrics_json}")
+
+    if args.trace_out or args.metrics_json:
+        atexit.register(flush)
+        signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(1))
+
     rng = np.random.default_rng(0)
+    jobs, t = [], 0.0
     for i in range(args.requests):
-        model = tenants[i % len(tenants)].name
         plen = int(rng.integers(max(args.prompt_len // 2, 2),
                                 args.prompt_len + 1))
-        eng.submit(model, rng.integers(1, cfg.vocab, plen).tolist(),
-                   max_new_tokens=args.gen)
-    summary = eng.run()
-    print(f"engine: {args.requests} requests across {len(tenants)} models, "
-          f"{args.kv_slots} KV slots each, weight arena {weight_slots} "
-          f"slots, page size {args.page_size}, on {eng.device}")
+        jobs.append((t, names[i % len(names)],
+                     rng.integers(1, cfg.vocab, plen).tolist(), args.gen))
+        if args.virtual_clock:
+            # Poisson-ish arrivals in simulated time (mean gap 4 ms, step
+            # dt 2 ms): the whole run is byte-reproducible
+            t += float(rng.exponential(0.004))
+    if args.virtual_clock:
+        summary = drive_simulated(eng, clock, jobs, dt=0.002)
+    else:
+        for _, model, prompt, gen in jobs:
+            eng.submit(model, prompt, max_new_tokens=gen)
+        summary = eng.run()
+    layout = (f"page size {args.page_size}" if args.kv_layout == "paged"
+              else "slot layout")
+    print(f"engine: {args.requests} requests across {len(names)} models, "
+          f"{args.kv_slots} KV slots each, weight arena "
+          f"{eng.residency.arena_slots} slots, {layout}, on {eng.device}")
     print(format_summary(summary))
+    flush()
+    return eng
+
+
+def run_greedy(args, params=None):
+    """The launcher's default mode, as `repro.launch.serve` without a mode
+    flag: `make_batch`'s `--batch` x `--prompt-len` tokens prefilled into
+    a cache of prompt_len + gen, then `--gen` - 1 greedy steps of the
+    batched decode step at one scalar position.  Prints the prefill and
+    decode times and the decode rate; returns (tokens (batch, gen) int
+    array, prefill seconds, decode seconds)."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if params is None:
+        params = init_params(cfg, seed=0, device=args.device)
+    device = torch.device(args.device)
+    data = DataConfig(seq_len=args.prompt_len, global_batch=args.batch)
+    tokens = torch.as_tensor(make_batch(cfg, data, 0)["tokens"],
+                             device=device)
+    prefill_fn = cached_prefill_step(cfg, args.prompt_len + args.gen)
+    serve_fn = cached_serve_step(cfg)
+
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(params, tokens)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    out = [logits.argmax(-1).to(torch.int32)]
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, caches = serve_fn(params, out[-1], caches,
+                                  args.prompt_len + i)
+        out.append(logits.argmax(-1).to(torch.int32))
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+
+    toks = torch.stack(out, 1).cpu().numpy()
+    print(f"prefill {args.batch}×{args.prompt_len}: {t_prefill*1e3:.1f} ms; "
+          f"decode {args.gen-1} steps: {t_decode*1e3:.1f} ms "
+          f"({(args.gen-1)*args.batch/max(t_decode,1e-9):.1f} tok/s)")
+    print("sampled token ids:", toks[0, :12], "...")
+    return toks, t_prefill, t_decode
 
 
 def _run_streaming(args) -> None:
     """`repro.launch.serve --streaming`: one streamed forward over step 0 of
     the synthetic data pipeline, `make_batch(cfg, DataConfig(prompt_len,
     batch), 0)`, as the reference feeds it."""
-    import torch
     from repro_torch.streaming.executor import StreamingExecutor
     cfg = get_config(args.arch, smoke=args.smoke)
     params = init_params(cfg, seed=0, device=args.device)
@@ -102,21 +229,28 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", choices=ARCHS, default="gemma-7b")
     p.add_argument("--smoke", action="store_true")
-    mode = p.add_mutually_exclusive_group(required=True)
+    mode = p.add_mutually_exclusive_group()
     mode.add_argument("--engine", action="store_true",
-                      help="continuous-batching engine")
+                      help="continuous-batching engine, 2 tenants")
     mode.add_argument("--streaming", action="store_true",
                       help="one forward of the layer-streaming executor")
     p.add_argument("--arena-slots", type=int, default=3,
                    help="streaming: layers the device arena holds")
     p.add_argument("--batch", type=int, default=4,
-                   help="streaming: sequences in the batch")
+                   help="default mode and streaming: sequences in the "
+                        "batch")
     p.add_argument("--kv-slots", type=int, default=4,
-                   help="engine: decode rows of each tenant")
+                   help="engine: KV slots (decode rows) of each tenant")
     p.add_argument("--weight-slots", type=int, default=0,
                    help="engine: weight arena slots (0 = n_layers+1)")
     p.add_argument("--turn-steps", type=int, default=8,
                    help="engine: tenant time-slice length in steps")
+    p.add_argument("--queue-policy", choices=("fcfs", "sjf"), default="fcfs",
+                   help="engine: admission order of queued requests")
+    p.add_argument("--kv-layout", choices=("slot", "paged"), default="slot",
+                   help="engine: whole-sequence KV slots, or paged KV with "
+                        "prefix sharing (removes the per-request max_seq "
+                        "ceiling)")
     p.add_argument("--install-ticks-per-step", type=int, default=0,
                    help="engine: weight-install tick budget per step "
                         "(0 = instant installs at the turn boundary)")
@@ -146,15 +280,33 @@ def _parser() -> argparse.ArgumentParser:
                         "max-capacity buffer (<= 1 restores the single "
                         "max-capacity staging length)")
     p.add_argument("--prefix-cache", action="store_true",
-                   help="engine: radix-tree prefix cache over KV pages: "
-                        "finished requests donate their pages, warm "
-                        "requests skip prefill chunks covered by cached "
-                        "pages, LRU eviction frees pages on demand")
+                   help="engine: radix-tree prefix cache over KV pages "
+                        "(--kv-layout paged): finished requests donate "
+                        "their pages, warm requests skip prefill chunks "
+                        "covered by cached pages, LRU eviction frees pages "
+                        "on demand")
     p.add_argument("--prefix-cache-pages", type=int, default=0,
                    help="engine: cap on retained prefix-cache pages per "
                         "tenant (0 = bounded only by on-demand eviction)")
     p.add_argument("--page-size", type=int, default=8,
-                   help="tokens per KV page")
+                   help="engine: tokens per KV page (--kv-layout paged)")
+    p.add_argument("--no-fuse-sampling", action="store_true",
+                   help="engine: split sampling back out of the paged "
+                        "decode step (fused on-device sampling is the "
+                        "default — logits never leave the device)")
+    p.add_argument("--trace-out", type=str, default="",
+                   help="engine: write a Chrome-trace-format JSON of the "
+                        "run (per-step component spans + request lifecycle "
+                        "spans) to this path; load in chrome://tracing or "
+                        "ui.perfetto.dev")
+    p.add_argument("--metrics-json", type=str, default="",
+                   help="engine: dump the final summary and the typed "
+                        "metrics registry (counters/gauges/histograms) as "
+                        "JSON to this path")
+    p.add_argument("--virtual-clock", action="store_true",
+                   help="engine: run on a VirtualClock with deterministic "
+                        "simulated arrivals — every artifact is "
+                        "byte-reproducible")
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--gen", type=int, default=16)
     p.add_argument("--requests", type=int, default=10,
@@ -166,7 +318,12 @@ def _parser() -> argparse.ArgumentParser:
 
 def main() -> None:
     args = _parser().parse_args()
-    (_run_streaming if args.streaming else _run_engine)(args)
+    if args.engine:
+        _run_engine(args)
+    elif args.streaming:
+        _run_streaming(args)
+    else:
+        run_greedy(args)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ import torch
 from repro_torch.nn.attention import _kv_quant
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.model import chunk_prefill, decode_step, prefill
+from repro_torch.nn.transformer import stack_plan
 from repro_torch.serving.sampling import sample_tokens
 
 
@@ -79,23 +80,58 @@ def prefill_cache_info() -> Dict[str, int]:
 
 
 # ----------------------------------------- chunked-prefill staging install
-def _finalize_attn_entry(cfg: ModelConfig, entry):
-    """One attention entry from the raw staging layout to the page-pool
-    install source: int8 tenants quantize here (staging attends in bf16,
-    as the monolithic prefill does, and quantizes once).  Page pools store
-    every position, so nothing is ringed or sliced."""
-    if cfg.kv_cache_dtype != "int8":
-        return entry
-    kq, ks = _kv_quant(entry["k"])
-    vq, vs = _kv_quant(entry["v"])
-    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+def _finalize_attn_entry(cfg: ModelConfig, entry, *, axis: int, window: int,
+                         target_len: int, true_len: int,
+                         ring_windows: bool):
+    """One attention entry from the raw full-length staging layout to the
+    serving layout: int8 tenants quantize here (staging attends in bf16,
+    as the monolithic prefill does, and quantizes once); with
+    `ring_windows` (slot arenas) a sliding-window layer is gathered down to
+    its window-sized ring; every other leaf is sliced to `target_len`.
+    Page pools store every position, so their install source is only
+    quantized."""
+    def shape_to(leaf):
+        if ring_windows and 0 < window < target_len:
+            # ring slot i holds the largest valid position = i (mod
+            # window); slots with no valid position yet gather the clipped
+            # position 0, which the decode mask (abs_pos >= 0) never admits
+            last = true_len - 1
+            idx = last - torch.remainder(
+                last - torch.arange(window, device=leaf.device), window)
+            idx = torch.clamp(idx, 0, leaf.shape[axis] - 1)
+            return torch.index_select(leaf, axis, idx)
+        if leaf.shape[axis] > target_len:
+            return leaf.narrow(axis, 0, target_len)
+        return leaf
+
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _kv_quant(entry["k"])
+        vq, vs = _kv_quant(entry["v"])
+        return {"k": shape_to(kq), "v": shape_to(vq),
+                "k_scale": shape_to(ks), "v_scale": shape_to(vs)}
+    return {"k": shape_to(entry["k"]), "v": shape_to(entry["v"])}
 
 
-def _make_stage_finalize(cfg: ModelConfig):
-    def finalize(staging):
-        return [{**seg, "attn": _finalize_attn_entry(cfg, seg["attn"])}
-                for seg in staging]
+def _make_stage_finalize(cfg: ModelConfig, target_len: int,
+                         ring_windows: bool):
+    plan = stack_plan(cfg)
+
+    def finalize(staging, true_len: int):
+        return [{**seg, "attn": _finalize_attn_entry(
+                    cfg, seg["attn"], axis=2 if scanned else 1,
+                    window=cfg.window_for_layer(start),
+                    target_len=target_len, true_len=int(true_len),
+                    ring_windows=ring_windows)}
+                for seg, (start, _, scanned) in zip(staging, plan)]
     return finalize
+
+
+@functools.lru_cache(maxsize=None)
+def cached_stage_install(cfg: ModelConfig, staging_len: int, arena_len: int):
+    """Staging -> slot-arena row (the reference's `cached_stage_install`,
+    keyed on the same shapes): ring the windowed layers, slice the rest to
+    `arena_len`, quantize int8 tenants.  (staging, true_len) -> row."""
+    return _make_stage_finalize(cfg, arena_len, ring_windows=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,8 +139,18 @@ def cached_stage_quantize(cfg: ModelConfig, staging_len: int):
     """Staging -> paged-pool install source (the reference's
     `cached_stage_quantize`, keyed on the same shapes): only int8 tenants
     change.  The staging is left as it is; the page writer slices several
-    blocks out of the finalized source."""
-    return _make_stage_finalize(cfg)
+    blocks out of the finalized source.  (staging, true_len) -> source."""
+    return _make_stage_finalize(cfg, staging_len, ring_windows=False)
+
+
+@functools.lru_cache(maxsize=None)
+def cached_serve_step(cfg: ModelConfig):
+    """One decode step over contiguous caches, the slot layout, for one
+    config: (params, token, caches, pos) -> (logits (B, vocab_padded),
+    caches), the caches written in place; `pos` may be a scalar or a
+    per-row (B,) vector — the vector form is what slot-based continuous
+    batching decodes with."""
+    return functools.partial(decode_step, cfg=cfg)
 
 
 def paged_serve_step(params, token, caches, pos, page_table,

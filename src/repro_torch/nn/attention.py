@@ -1,6 +1,6 @@
 """Attention, GQA half — PyTorch port of `repro.nn.attention`.
 
-Three modes, as the serving path uses them:
+Four modes, as the serving path uses them:
   * prefill (cache=None, make_cache=True): causal self-attention over the
     prompt through the flash kernel, then the batch's K/V laid out as a
     contiguous cache (int8-quantized when the config says so);
@@ -10,23 +10,35 @@ Three modes, as the serving path uses them:
     with a per-query mask over the whole staging cache — the reference's
     XLA einsum route (`repro.nn.attention`, its chunked branch), which no
     Pallas kernel of the reference takes;
+  * slot decode (cache = a contiguous (B, L, Hkv, D) cache, page_table
+    None, cache_pos a 0-d or (B,) tensor, S == 1): write this token's K/V
+    at its row's position (slot = pos % window on a sliding-window ring,
+    clamped to the cache as `dynamic_update_slice` clamps), then attend
+    over the row.  The caller picks this branch by passing a tensor
+    position (`nn.model.decode_step` without a page table), never by S;
   * paged decode (cache = page pools, page_table given, S == 1): scatter
     this token's K/V into its physical page, then attend over the row's
     pages through the paged kernel.
 
-Routes the kernels do not take are decided by the config, as the
-reference decides them: sliding-window, logit-softcap and non-causal
-prefills run the plain masked softmax (`_softmax_attend`); windowed or
-softcapped paged decode gathers the row's pages and masks
-(`_paged_append_gqa`); int8 pools are dequantized before the paged kernel.
-gemma-7b takes none of those routes.
+Both decodes attend through the paged kernel on full-attention,
+softcap-free layers: slot decode views its contiguous cache as a pool of
+B·L/p pages of p tokens (p the largest power of two up to 16 dividing L)
+under an identity page table, with no copy, so the kernel walks only each
+row's live tokens.  Routes the kernels do not take are decided by the
+config, as the reference decides them: sliding-window, logit-softcap and
+non-causal prefills run the plain masked softmax (`_softmax_attend`), and
+so do windowed (ring) or softcapped slot decode and windowed or
+softcapped paged decode (`_paged_append_gqa` gathers the row's pages
+first); int8 caches are dequantized before the paged kernel.  gemma-7b
+takes none of those routes.
 
 All paths accumulate in f32 and cast the result once to the activation
-dtype.  Page pools are updated in place (the reference returns new pools
+dtype.  Caches are updated in place (the reference returns new caches
 from a donated jit argument; here the write is the same, without a copy).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -76,9 +88,11 @@ def _softmax_attend(q, k, v, mask, softcap: float) -> torch.Tensor:
 def _kv_quant(x: torch.Tensor):
     """Symmetric per-(token, head) int8 quantization of K/V slices.
     x: (B, S, H, D) -> (codes int8, scale f32 (B, S, H)).  torch.round
-    rounds half to even, as jnp.round does."""
+    rounds half to even, as jnp.round does.  The scale is the product with
+    f32(1/127): the reference runs this inside a jit, where XLA folds its
+    division by the constant 127 into that product."""
     xf = x.float()
-    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0
+    scale = torch.amax(torch.abs(xf), dim=-1) * (1.0 / 127.0)
     scale = torch.clamp(scale, min=1e-8)
     codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return codes.to(torch.int8), scale
@@ -122,32 +136,34 @@ def attention(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Prefill (cache=None, optionally make_cache), chunked prefill (cache
     = a contiguous staging cache, page_table None, cache_pos = the chunk's
-    int start) or paged decode (cache = page pools, page_table
-    (B, T), cache_pos (B,) per-row positions).  Returns (y (B, S,
-    d_model), new_cache); caches are written in place."""
+    int start), slot decode (cache = a contiguous cache, page_table None,
+    cache_pos a 0-d or (B,) tensor) or paged decode (cache = page pools,
+    page_table (B, T), cache_pos (B,) per-row positions).  Returns
+    (y (B, S, d_model), new_cache); caches are written in place."""
     if cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: attn_type {cfg.attn_type!r} is not ported yet")
     B, S, _ = x.shape
     dev = x.device
+    decode = torch.is_tensor(cache_pos)
     if cache_pos is None:
         positions = torch.arange(S, device=dev)[None, :].expand(B, S)
-    elif page_table is None:
+    elif not decode:
         # a chunk at absolute positions [start, start+S)
         positions = (int(cache_pos)
                      + torch.arange(S, device=dev))[None, :].expand(B, S)
     else:
+        cache_pos = cache_pos.reshape(-1).expand(B)
         positions = cache_pos[:, None]
 
     q, k, v = _gqa_qkv(params, x, cfg, positions)
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     new_cache = None
 
-    if cache is not None and page_table is None:
-        if torch.is_tensor(cache_pos) and cache_pos.ndim:
-            raise NotImplementedError(
-                "contiguous-cache decode at per-row positions (the slot "
-                "layout) is not ported; pass a page_table")
+    if cache is not None and page_table is None and decode:
+        new_cache = _slot_write(cache, k, v, cfg, layer_window, cache_pos)
+        o = _slot_attend(new_cache, q, cfg, layer_window, cache_pos)
+    elif cache is not None and page_table is None:
         # a chunk may be one token (a prefix-cache skip can leave one); the
         # reference runs that through its decode branch at the same scalar
         # position, with the same write and mask for full-attention bf16
@@ -238,6 +254,82 @@ def _make_cache(k, v, cfg: ModelConfig, layer_window: int, L: int):
     if int8:
         cache.update({"k_scale": ksc, "v_scale": vsc})
     return cache
+
+
+def _slot_write(cache, k, v, cfg: ModelConfig, layer_window: int, pos):
+    """Slot-decode append (the reference's `_dus_batch` at per-row
+    positions): write this step's K/V (B, 1, Hkv, D), quantized per token
+    for int8 caches, at each row's slot in place.  A sliding-window layer
+    whose cache is its ring (0 < window <= L) writes slot = pos % window;
+    other layers write at pos, clamped into the cache as
+    `dynamic_update_slice` clamps it (a freed row's stale position is
+    decoded too).  Returns the cache."""
+    L = cache["k"].shape[1]
+    ring = layer_window if 0 < layer_window <= L else 0
+    pos = pos.long()
+    slot = (torch.remainder(pos, ring) if ring
+            else torch.clamp(pos, 0, L - 1))
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k, "v": v}
+    for name, val in new.items():
+        cache[name][rows, slot] = val[:, 0].to(cache[name].dtype)
+    return cache
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_table(rows: int, pages: int, device: torch.device):
+    """int32 (rows, pages) table mapping row b's block i to page
+    b·pages + i: a contiguous (rows, pages·p, ...) cache seen as a pool."""
+    return torch.arange(rows * pages, dtype=torch.int32,
+                        device=device).view(rows, pages)
+
+
+def _page_view(L: int) -> int:
+    """Page size of a length-L cache seen as a pool: the largest power of
+    two up to 16 that divides L."""
+    return math.gcd(L, 16)
+
+
+def _slot_attend(cache, q, cfg: ModelConfig, layer_window: int, pos):
+    """Attention of one decode token per row over a contiguous cache that
+    `_slot_write` has written.  Full-attention, softcap-free layers go
+    through the paged kernel over the cache seen as pages (`_page_view`,
+    `_identity_table`; a view, no copy; int8 caches dequantized first);
+    its plain version on the CPU is the reference's f32 masked einsum over
+    the same L keys.  Ring and softcap layers run that einsum here, with
+    the reference's ring mask.  Returns (B, 1, Hkv, G, D) f32 or q's
+    dtype."""
+    B = q.shape[0]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    L = cache["k"].shape[1]
+    if cfg.kv_cache_dtype == "int8":
+        kc = _kv_dequant(cache["k"], cache["k_scale"], q.dtype)
+        vc = _kv_dequant(cache["v"], cache["v_scale"], q.dtype)
+    else:
+        kc, vc = cache["k"], cache["v"]
+    if layer_window <= 0 and cfg.logit_softcap <= 0:
+        p = _page_view(L)
+        table = _identity_table(B, L // p, kc.device)
+        o = paged_attention(q[:, 0].reshape(B, H, D),
+                            kc.view(B * L // p, p, Hkv, D),
+                            vc.view(B * L // p, p, Hkv, D), table, pos)
+        return o.reshape(B, 1, Hkv, H // Hkv, D)
+    ring = layer_window if 0 < layer_window <= L else 0
+    kpos = torch.arange(L, device=kc.device)[None, :]
+    cp = pos.long()[:, None]
+    if ring:
+        # the absolute position slot i holds: the largest p <= pos with
+        # p = i (mod ring)
+        abs_pos = cp - torch.remainder(cp - kpos, ring)
+        valid = (abs_pos >= 0) & (abs_pos > cp - ring)
+    else:
+        valid = kpos <= cp
+    return _softmax_attend(q, kc, vc, valid[:, None, :], cfg.logit_softcap)
 
 
 def _staging_append(cache, k, v, start: int):

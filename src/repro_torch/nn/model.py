@@ -1,7 +1,7 @@
 """Top-level language model — PyTorch port of `repro.nn.model` for token
 LMs: embeddings → stack → norm → logits, plus the serving entry points:
-monolithic prefill, chunked prefill into a staging cache, and paged
-decode.
+monolithic prefill, chunked prefill into a staging cache, and decode over
+contiguous (slot) or paged caches.
 """
 from __future__ import annotations
 
@@ -163,10 +163,14 @@ def chunk_prefill(params: Params, tokens: torch.Tensor, caches, start: int,
 
 
 def decode_step(params: Params, token: torch.Tensor, caches, pos,
-                cfg: ModelConfig, page_table: torch.Tensor):
-    """One autoregressive step over page pools.  token (B,) int; pos (B,)
-    per-row write positions; page_table (B, T) int32 (see serving.paging).
-    The pools in `caches` are written in place and returned."""
+                cfg: ModelConfig, page_table: Optional[torch.Tensor] = None):
+    """One autoregressive step.  token (B,) int; pos a scalar (int or 0-d
+    tensor) or (B,) per-row write positions.  With `page_table` (B, T)
+    int32 the caches are page pools (see serving.paging) and pos must be
+    (B,); without it they are contiguous (B, L, ...) caches, the slot
+    layout (see serving.kv_arena).  The caches are written in place and
+    returned."""
+    pos = torch.as_tensor(pos, device=token.device)
     logits, new_caches = forward(params, token[:, None], cfg, caches=caches,
                                  cache_pos=pos, last_only=True,
                                  page_table=page_table)

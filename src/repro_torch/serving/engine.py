@@ -1,6 +1,7 @@
 """Continuous-batching serving engine with an ARAS-style multi-model
-weight arena — PyTorch port of `repro.serving.engine` for the paged KV
-layout.
+weight arena — PyTorch port of `repro.serving.engine` for both KV
+layouts: whole-sequence slots (`KVArena`, the default) and pages
+(`PagedKVArena`).
 
 Each step picks the tenants that run (all tenants with demand when their
 layers fit the weight arena together, else one tenant per turn of
@@ -8,27 +9,30 @@ layers fit the weight arena together, else one tenant per turn of
 (`WeightResidencyManager.ensure`) or through the budgeted install pipeline
 that can overlap the next tenant's installs with the current one's last
 decode steps — then admits up to `max_prefill_per_step` queued requests of
-the resident tenants (a monolithic prefill into a page-multiple bucket,
-whose pages are then installed into the tenant's `PagedKVArena`; the
-prefill's logits give the first token), then decodes one token for every
-running row of each of them in one batched paged decode step, sampling on
-the device (fused) or right after it (split).  With `prefill_chunk > 0`
-a prompt is instead prefilled in chunks spread across steps under the
-scheduler's prefill-token budget: each request stages its K/V in a
-contiguous staging cache (chunk attention is the reference's masked
-einsum over it), skips the chunks its tenant's prefix cache already holds
-(the staging is seeded from the cached pages), and installs only its
-non-shared pages when the last chunk gives the first token; the tail
-chunk is padded to a bucket-ladder rung, so the chunk shapes stay few.
-Finished requests donate
-their pages to the radix prefix cache when the tenant has it on; a pool
-that runs dry mid-decode preempts the request, which re-prefills its
-prompt plus generated tokens on readmission.
+the resident tenants (a monolithic prefill, into a `max_seq` cache that
+is written into the request's slot, or into a page-multiple bucket whose
+pages are installed into the tenant's page pool; the prefill's logits
+give the first token), then decodes one token for every running row of
+each of them in one batched decode step, sampling on the device (fused,
+paged tenants) or right after it (split: slot tenants always, as in the
+reference).  With `prefill_chunk > 0` a prompt is instead prefilled in
+chunks spread across steps under the scheduler's prefill-token budget:
+each request stages its K/V in a contiguous staging cache (chunk
+attention is the reference's masked einsum over it), skips the chunks a
+paged tenant's prefix cache already holds (the staging is seeded from the
+cached pages), and when the last chunk gives the first token installs its
+slot row (windowed layers ringed, int8 quantized) or only its non-shared
+pages; the tail chunk is padded to a bucket-ladder rung, so the chunk
+shapes stay few.  Finished requests donate their pages to the radix
+prefix cache when the tenant has it on; a pool that runs dry mid-decode
+preempts the request, which re-prefills its prompt plus generated tokens
+on readmission; a freed slot keeps its stale rows, which the position
+mask never admits.
 
 The weight arena is an accounting model, as in the reference: every
 tenant's params stay on the device, and residency decides when a tenant
-runs, never what it computes.  For dense GQA tenants the greedy tokens,
-stall steps and install bytes match the reference engine's
+runs, never what it computes.  For dense GQA tenants of either layout the
+greedy tokens, stall steps and install bytes match the reference engine's
 (`kernel_backend="xla"`) on the CPU.
 """
 from __future__ import annotations
@@ -45,6 +49,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (cached_chunk_prefill_step,
                                       cached_prefill_step,
+                                      cached_serve_step,
+                                      cached_stage_install,
                                       cached_stage_quantize,
                                       fused_paged_serve_step,
                                       paged_serve_step, prefill_cache_info,
@@ -53,6 +59,7 @@ from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.model import init_cache
 from repro_torch.serving.bucketing import (PrefillProgress, bucket_for,
                                            bucket_ladder)
+from repro_torch.serving.kv_arena import KVArena
 from repro_torch.serving.metrics import EngineMetrics, StepRecord
 from repro_torch.serving.paging import PagedKVArena
 from repro_torch.serving.request import Request, RequestStatus
@@ -68,21 +75,35 @@ _log = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class EngineModel:
-    """One tenant: a named (params, config) pair plus its paged KV budget:
-    `kv_slots` decode rows and `n_pages` pages of `page_size` tokens
-    (0 → kv_slots · ceil(max_seq / page_size)); a request may span up to
-    the whole pool.  `prefix_cache` retains finished requests' pages in a
-    radix tree (LRU-evicted on demand, capped at `prefix_cache_pages`,
-    0 = uncapped)."""
+    """One tenant: a named (params, config) pair plus its KV budget.
+
+    kv_layout picks the arena: "slot" binds each request to a whole
+    `max_seq` sequence slot of `kv_slots`; "paged" stores KV in
+    `page_size`-token pages, `n_pages` of them (0 → kv_slots ·
+    ceil(max_seq / page_size)), `kv_slots` becoming the decode-batch row
+    count and the per-request ceiling the whole pool.  `prefix_cache`
+    (paged only) retains finished requests' pages in a radix tree
+    (LRU-evicted on demand, capped at `prefix_cache_pages`, 0 =
+    uncapped)."""
     name: str
     params: Any
     cfg: ModelConfig
     kv_slots: int = 4
     max_seq: int = 64
+    kv_layout: str = "slot"          # "slot" | "paged"
     page_size: int = 8
     n_pages: int = 0
     prefix_cache: bool = False
     prefix_cache_pages: int = 0
+
+    def __post_init__(self):
+        if self.kv_layout not in ("slot", "paged"):
+            raise ValueError(f"unknown kv_layout {self.kv_layout!r} "
+                             "(expected 'slot' or 'paged')")
+        if self.prefix_cache and self.kv_layout != "paged":
+            raise ValueError(
+                f"{self.name}: prefix_cache needs kv_layout='paged' "
+                "(slot arenas have no pages to retain)")
 
 
 class ServingEngine:
@@ -111,17 +132,24 @@ class ServingEngine:
                 raise ValueError(f"{m.name}: engine serves causal token LMs")
         self.device = resolve_device(device)
         self.models: Dict[str, EngineModel] = {m.name: m for m in models}
-        # fuse_sampling keeps sampling inside the decode step so logits
-        # never leave the device; False splits it back out (still one
-        # batched sampler call per step)
+        # fuse_sampling keeps sampling inside a paged tenant's decode step
+        # so logits never leave the device; False splits it back out
+        # (still one batched sampler call per step).  Slot tenants always
+        # sample split, as the reference's do
         self._fuse = bool(fuse_sampling)
-        self.arenas: Dict[str, PagedKVArena] = {}
+        self.arenas: Dict[str, Any] = {}
         for m in models:
-            n_pages = m.n_pages or m.kv_slots * -(-m.max_seq // m.page_size)
-            self.arenas[m.name] = PagedKVArena(
-                m.cfg, m.kv_slots, n_pages, m.page_size,
-                prefix_cache=m.prefix_cache,
-                prefix_cache_pages=m.prefix_cache_pages, device=self.device)
+            if m.kv_layout == "paged":
+                n_pages = m.n_pages or m.kv_slots * -(-m.max_seq
+                                                      // m.page_size)
+                self.arenas[m.name] = PagedKVArena(
+                    m.cfg, m.kv_slots, n_pages, m.page_size,
+                    prefix_cache=m.prefix_cache,
+                    prefix_cache_pages=m.prefix_cache_pages,
+                    device=self.device)
+            else:
+                self.arenas[m.name] = KVArena(m.cfg, m.kv_slots, m.max_seq,
+                                              device=self.device)
 
         # The weight arena: every tenant's big tensors in one quantized
         # store on the engine's device; the default arena holds every
@@ -137,7 +165,7 @@ class ServingEngine:
         # resource decisions land in the same trace as the component spans
         self.tracer: Any = tracer if tracer is not None else NULL_TRACER
         self.residency.tracer = self.tracer
-        for arena in self.arenas.values():
+        for arena in self._paged_arenas():
             arena.tracer = self.tracer
             arena.allocator.tracer = self.tracer
         self.scheduler = StepScheduler(sched)
@@ -187,12 +215,15 @@ class ServingEngine:
             for m in models:
                 # Staging-length ladder: each in-flight prefill stages into
                 # the smallest rung covering its prompt.  Rungs are
-                # multiples of lcm(chunk, page): bucket-padded tails always
-                # fit, chunk starts stay aligned, and the install's
-                # per-page slices stay in bounds.  staging_growth <= 1
-                # collapses it to the single max-capacity length.
-                quantum = math.lcm(self._chunk, m.page_size)
-                cap = self.arenas[m.name].max_tokens
+                # multiples of the chunk (bucket-padded tails always fit,
+                # chunk starts stay aligned) and, for paged tenants, of the
+                # page size (the install's per-page slices stay in
+                # bounds).  staging_growth <= 1 collapses it to the single
+                # max-capacity length.
+                quantum = self._chunk
+                if m.kv_layout == "paged":
+                    quantum = math.lcm(self._chunk, m.page_size)
+                cap = self._capacity(m.name)
                 top = -(-cap // quantum) * quantum
                 if staging_growth > 1.0 and top > quantum:
                     rungs = sorted({-(-r // quantum) * quantum for r in
@@ -208,7 +239,30 @@ class ServingEngine:
         bucket-padded tail chunk always fits)."""
         return bucket_for(n_tokens, self._staging_ladders[name])
 
+    def _paged_arenas(self):
+        return [a for a in self.arenas.values()
+                if isinstance(a, PagedKVArena)]
+
     # ------------------------------------------------------------ intake
+    def _prefill_fn(self, name: str, prompt_len: int):
+        """Monolithic prefill (prefill_chunk == 0): slot tenants prefill
+        into a `max_seq` cache, the shape of an arena row; paged tenants
+        into a page-multiple bucket so installs write whole pages."""
+        m = self.models[name]
+        arena = self.arenas[name]
+        if isinstance(arena, PagedKVArena):
+            bucket = arena.blocks_for(prompt_len) * arena.page_size
+            return cached_prefill_step(m.cfg, bucket)
+        return cached_prefill_step(m.cfg, m.max_seq)
+
+    def _capacity(self, model: str) -> int:
+        """Per-request token ceiling: max_seq for slot arenas, the whole
+        page pool for paged ones."""
+        arena = self.arenas[model]
+        if isinstance(arena, PagedKVArena):
+            return arena.max_tokens
+        return self.models[model].max_seq
+
     def submit(self, model: str, prompt: Sequence[int],
                max_new_tokens: int = 16,
                arrival_t: Optional[float] = None,
@@ -227,7 +281,7 @@ class ServingEngine:
                       else arrival_t)
         self._next_rid += 1
         self.requests[req.rid] = req
-        if req.prompt_len + max_new_tokens > self.arenas[model].max_tokens:
+        if req.prompt_len + max_new_tokens > self._capacity(model):
             req.status = RequestStatus.REJECTED
             self.scheduler.rejected += 1
             self.tracer.request_phase(req.rid, "rejected", model=model)
@@ -237,10 +291,10 @@ class ServingEngine:
         return req
 
     def preempt(self, rid: int) -> None:
-        """Evict a running request's pages and requeue it; its generated
-        prefix is re-prefilled on readmission, so no tokens are lost.  A
-        mid-prefill (chunked) request keeps its staging and resumes at the
-        last completed chunk instead."""
+        """Evict a running request's KV slot or pages and requeue it; its
+        generated prefix is re-prefilled on readmission, so no tokens are
+        lost.  A mid-prefill (chunked) request keeps its staging and resumes
+        at the last completed chunk instead."""
         req = self.requests[rid]
         if req.status is RequestStatus.PREFILLING:
             self._preempt_prefill(req)
@@ -260,7 +314,9 @@ class ServingEngine:
         admission-race requeue.  No-op when tracing is disabled."""
         if not self.tracer.enabled:
             return
-        pages = len(self.arenas[req.model].allocator.tables.get(req.rid, ()))
+        arena = self.arenas[req.model]
+        pages = (len(arena.allocator.tables.get(req.rid, ()))
+                 if isinstance(arena, PagedKVArena) else 0)
         st = self._prefills.get(req.rid)
         chunks = (-(-st.done // self._chunk)
                   if st is not None and self._chunk > 0 else 0)
@@ -284,29 +340,36 @@ class ServingEngine:
                             key=request_key(req.seed, req.rid),
                             step=len(req.generated))
 
+    def _can_admit(self, req: Request) -> bool:
+        """Slot tenants gate on a free slot only; paged tenants also on
+        enough free pages for the request's non-shared blocks."""
+        arena = self.arenas[req.model]
+        if isinstance(arena, PagedKVArena):
+            return arena.can_admit(req.serving_prompt())
+        return True
+
     def _next_admits(self, allowed) -> list:
         """Queued requests of the scheduled (weight-resident) tenants that
-        get a free decode row AND enough free pages for their non-shared
-        blocks this step, popped from the queue."""
+        get a free slot or decode row (and, paged, enough free pages for
+        their non-shared blocks) this step, popped from the queue."""
         free = {name: (arena.n_free if name in allowed else 0)
                 for name, arena in self.arenas.items()}
         n_active = sum(len(a.active_slots()) for a in self.arenas.values())
-        return self.scheduler.next_admits(
-            free, n_active,
-            lambda req: self.arenas[req.model].can_admit(
-                req.serving_prompt()))
+        return self.scheduler.next_admits(free, n_active, self._can_admit)
 
     def _admit(self, allowed) -> tuple:
         """Admit queued requests (`_next_admits`).  Each admission runs its
-        monolithic prefill into a page-multiple bucket (so the install
-        writes whole pages) and emits the first token."""
+        monolithic prefill (`_prefill_fn`), installs the cache into its
+        slot or pages and emits the first token."""
         admits = self._next_admits(allowed)
         n_admitted = n_tokens = 0
         for req in admits:
             m = self.models[req.model]
             arena = self.arenas[req.model]
             prompt = req.serving_prompt()
-            slot = arena.alloc(req.rid, prompt)
+            paged = isinstance(arena, PagedKVArena)
+            slot = arena.alloc(req.rid, prompt) if paged else \
+                arena.alloc(req.rid)
             if slot is None:
                 # an earlier admit this step consumed the pages the
                 # pre-pop check saw; head-of-queue retry next step.  The
@@ -320,12 +383,11 @@ class ServingEngine:
                 req.prefill_start_t = self._clock()
             tokens = torch.tensor([prompt], dtype=torch.int64,
                                   device=self.device)
-            bucket = arena.blocks_for(len(prompt)) * arena.page_size
-            logits, caches = cached_prefill_step(m.cfg, bucket)(m.params,
-                                                                tokens)
+            logits, caches = self._prefill_fn(req.model, len(prompt))(
+                m.params, tokens)
             tok = self._pick_token(req, logits[0])
             n_tokens += len(prompt)
-            arena.install(slot, caches, tok, prompt)
+            arena.install(slot, caches, tok, prompt if paged else len(prompt))
             req.slot = slot
             req.status = RequestStatus.RUNNING
             self.tracer.request_phase(req.rid, "running")
@@ -338,7 +400,7 @@ class ServingEngine:
             n_admitted += 1
         return n_admitted, n_tokens
 
-    def _sample_inputs(self, arena: PagedKVArena) -> tuple:
+    def _sample_inputs(self, arena) -> tuple:
         """Per-row host sampler inputs over a tenant's whole decode batch.
         Inactive rows get temperature 0 (a greedy lane nobody reads)."""
         n_rows = len(arena.owner)
@@ -355,10 +417,14 @@ class ServingEngine:
         return temps, tks, keys, steps
 
     def _finish(self, req: Request) -> None:
-        # with the prefix cache on, the finished request donates its
-        # prompt+generated pages into the radix tree instead of freeing them
-        self.arenas[req.model].evict(req.slot,
-                                     donate=req.prompt + tuple(req.generated))
+        arena = self.arenas[req.model]
+        if isinstance(arena, PagedKVArena):
+            # with the prefix cache on, the finished request donates its
+            # prompt+generated pages into the radix tree instead of freeing
+            # them
+            arena.evict(req.slot, donate=req.prompt + tuple(req.generated))
+        else:
+            arena.evict(req.slot)
         req.slot = None
         req.status = RequestStatus.FINISHED
         req.finish_t = self._clock()
@@ -368,13 +434,14 @@ class ServingEngine:
 
     # ------------------------------------------------- chunked prefill
     def _admit_staged(self, allowed) -> int:
-        """Chunked-prefill admission: claim a decode row and a staging
-        cache, but run no model yet — chunks run under _pump_prefills'
-        token budget.  A preempted mid-prefill request re-enters here with
-        its PrefillProgress intact and resumes at the last completed chunk.
+        """Chunked-prefill admission: claim a slot or decode row and a
+        staging cache, but run no model yet — chunks run under
+        _pump_prefills' token budget.  A preempted mid-prefill request
+        re-enters here with its PrefillProgress intact and resumes at the
+        last completed chunk.
 
-        Prefix-cache hit: when the tenant's radix tree covers a prefix of
-        the prompt, the staging is seeded from the cached pages up to the
+        Prefix-cache hit: when a paged tenant's radix tree covers a prefix
+        of the prompt, the staging is seeded from the cached pages up to the
         covered token and `done` jumps there, so those tokens are never
         recomputed and cost no prefill budget.  The skip is capped at
         prompt_len - 1 (the final chunk must run: its logits give the
@@ -384,7 +451,9 @@ class ServingEngine:
         for req in admits:
             arena = self.arenas[req.model]
             prompt = req.serving_prompt()
-            row = arena.stage(req.rid, prompt)
+            paged = isinstance(arena, PagedKVArena)
+            row = arena.stage(req.rid, prompt) if paged else \
+                arena.alloc(req.rid)
             if row is None:
                 # an earlier admit this step took the row the pre-pop
                 # check saw; head-of-queue retry next step
@@ -407,7 +476,7 @@ class ServingEngine:
                     caches=init_cache(m.cfg, 1, slen, staging=True,
                                       device=self.device))
                 self._prefills[req.rid] = st
-            if arena.skip_ok:
+            if paged and arena.skip_ok:
                 # skip to the exact covered token; a resumed prefill jumps
                 # too when pages donated since its preemption extend the
                 # cover past its completed chunks
@@ -421,15 +490,16 @@ class ServingEngine:
         return hit_tokens
 
     def _run_chunk(self, req: Request, st: PrefillProgress) -> int:
-        """Advance one chunk; returns valid tokens processed, or -1 when
-        the chunk's pages could not be reserved (the prefill is preempted,
-        staging intact, and resumes once pages free up)."""
+        """Advance one chunk; returns valid tokens processed, or -1 when a
+        paged tenant could not reserve the chunk's pages (the prefill is
+        preempted, staging intact, and resumes once pages free up)."""
         m = self.models[req.model]
         arena = self.arenas[req.model]
         start = st.done
         remaining = len(st.tokens) - start
         size = min(self._chunk, remaining)
-        if not arena.grow(req.rid, arena.blocks_for(start + size)):
+        if isinstance(arena, PagedKVArena) and not arena.grow(
+                req.rid, arena.blocks_for(start + size)):
             self._preempt_prefill(req)
             return -1
         if remaining > self._chunk:
@@ -462,13 +532,22 @@ class ServingEngine:
         return size
 
     def _finish_prefill(self, req: Request, st: PrefillProgress) -> None:
-        """Last chunk done: install the staging cache's non-shared blocks
-        into the arena's pages (int8 tenants quantized first), emit the
-        first token, and hand the request to the decode batch."""
+        """Last chunk done: install the staging cache into the arena (ring +
+        slice + int8 quantization for a slot row; the non-shared blocks,
+        int8 quantized, into a paged row's pages), emit the first token,
+        and hand the request to the decode batch."""
         m = self.models[req.model]
+        arena = self.arenas[req.model]
         tok = self._pick_token(req, st.logits[0])
-        source = cached_stage_quantize(m.cfg, st.staging_len)(st.caches)
-        self.arenas[req.model].finish_stage(req.slot, source, tok, st.tokens)
+        n_tok = len(st.tokens)
+        if isinstance(arena, PagedKVArena):
+            source = cached_stage_quantize(m.cfg, st.staging_len)(st.caches,
+                                                                  n_tok)
+            arena.finish_stage(req.slot, source, tok, st.tokens)
+        else:
+            row = cached_stage_install(m.cfg, st.staging_len, m.max_seq)(
+                st.caches, n_tok)
+            arena.install(req.slot, row, tok, n_tok)
         del self._prefills[req.rid]
         req.status = RequestStatus.RUNNING
         self.tracer.request_phase(req.rid, "running",
@@ -481,8 +560,8 @@ class ServingEngine:
             self._finish(req)
 
     def _preempt_prefill(self, req: Request) -> None:
-        """Mid-prefill preemption: release the row and any reserved pages,
-        keep the PrefillProgress (staging is per-request memory, not
+        """Mid-prefill preemption: release the slot or row and any reserved
+        pages, keep the PrefillProgress (staging is per-request memory, not
         pool), and requeue at the head — readmission resumes at the last
         completed chunk."""
         self.arenas[req.model].evict(req.slot)
@@ -521,8 +600,8 @@ class ServingEngine:
 
     def _can_progress(self, name: str) -> bool:
         """A tenant runs this step only if it can generate tokens: it has
-        active rows, or a queued request it could admit (free row, global
-        budget headroom, enough pages)."""
+        active rows, or a queued request it could admit (free slot or row,
+        global budget headroom, and for paged tenants enough pages)."""
         arena = self.arenas[name]
         if arena.active_slots():
             # includes PREFILLING rows: the tenant must be scheduled (and
@@ -536,7 +615,7 @@ class ServingEngine:
                            for a in self.arenas.values())
             if n_active >= budget:
                 return False
-        return any(r.model == name and arena.can_admit(r.serving_prompt())
+        return any(r.model == name and self._can_admit(r)
                    for r in self.scheduler.queue)
 
     def _pump_installs(self, run_models, demand) -> tuple:
@@ -618,38 +697,47 @@ class ServingEngine:
         for name in decodable:
             m = self.models[name]
             arena = self.arenas[name]
+            paged = isinstance(arena, PagedKVArena)
 
             def decoding(slot) -> bool:
-                # PREFILLING rows hold a row and reserved pages but are not
-                # in the decode batch yet: the batched step still computes
-                # their row, whose write lands in the scratch page and
-                # whose output is discarded here
+                # PREFILLING rows hold a slot (and reserved pages) but are
+                # not in the decode batch yet: the batched step still
+                # computes their row, whose write lands in the scratch page
+                # (paged) or is overwritten by the install (slot) and whose
+                # output is discarded here
                 s = self.requests[arena.owner_of(slot)].status
                 return s is RequestStatus.RUNNING
 
-            # extend tables across page boundaries and COW shared pages
-            # before the step writes; pool exhaustion preempts (the request
-            # re-prefills once pages free up)
-            with self.tracer.span("page", tenant=name):
-                for slot in arena.active_slots():
-                    if decoding(slot) and not arena.prepare_decode(slot):
-                        self.preempt(arena.owner_of(slot))
+            if paged:
+                # extend tables across page boundaries and COW shared pages
+                # before the step writes; pool exhaustion preempts (the
+                # request re-prefills once pages free up)
+                with self.tracer.span("page", tenant=name):
+                    for slot in arena.active_slots():
+                        if decoding(slot) and not arena.prepare_decode(slot):
+                            self.preempt(arena.owner_of(slot))
             slots = [s for s in arena.active_slots() if decoding(s)]
             if not slots:
                 continue
+            fused = self._fuse and paged
             temps, tks, keys, steps = self._sample_inputs(arena)
-            tokens, pos, tables = arena.decode_inputs()
             with self.tracer.span("decode", tenant=name, n_slots=len(slots)):
-                if self._fuse:
+                if fused:
+                    tokens, pos, tables = arena.decode_inputs()
                     toks_dev, arena.caches = fused_paged_serve_step(
                         m.params, tokens, arena.caches, pos, tables,
                         temps, tks, keys, steps, m.cfg)
-                else:
+                elif paged:
+                    tokens, pos, tables = arena.decode_inputs()
                     logits, arena.caches = paged_serve_step(
                         m.params, tokens, arena.caches, pos, tables, m.cfg)
-            with self.tracer.span("sample", tenant=name, fused=self._fuse,
+                else:
+                    tokens, pos = arena.decode_inputs()
+                    logits, arena.caches = cached_serve_step(m.cfg)(
+                        m.params, tokens, arena.caches, pos)
+            with self.tracer.span("sample", tenant=name, fused=fused,
                                   n_slots=len(slots)):
-                if not self._fuse:
+                if not fused:
                     toks_dev = sample_step(logits, m.cfg.vocab, temps, tks,
                                            keys, steps)
                 nxt = toks_dev.cpu().numpy()   # the step's one host sync
@@ -673,10 +761,10 @@ class ServingEngine:
                 # the step produced nothing because the scheduled tenant sat
                 # waiting on installs — don't charge it a decode-slice step
                 self.scheduler.refund_turn_step()
-            kv_used = sum(a.allocator.n_used for a in self.arenas.values())
-            kv_total = sum(a.allocator.n_pages for a in self.arenas.values())
-            cached = sum(a.allocator.tree.n_cached
-                         for a in self.arenas.values())
+            paged_arenas = self._paged_arenas()
+            kv_used = sum(a.allocator.n_used for a in paged_arenas)
+            kv_total = sum(a.allocator.n_pages for a in paged_arenas)
+            cached = sum(a.allocator.tree.n_cached for a in paged_arenas)
         if self.tracer.enabled:
             self.tracer.counter("kv_used_pages", kv_used)
             self.tracer.counter("queue_depth", self.scheduler.queue_depth)
@@ -743,13 +831,16 @@ class ServingEngine:
             paging=self._paging_stats(),
             prefill_cache=prefill_cache_info() if self._chunk > 0 else None)
 
-    def _paging_stats(self) -> Dict[str, float]:
-        """Paged-arena stats summed over tenants.  Each shared-page hit is
-        one page of KV the pool never had to store or prefill twice."""
+    def _paging_stats(self) -> Optional[Dict[str, float]]:
+        """Paged-arena stats summed over tenants (None when every tenant is
+        slot-managed).  Each shared-page hit is one page of KV the pool
+        never had to store or prefill twice."""
         agg: Dict[str, float] = {}
-        for arena in self.arenas.values():
+        for arena in self._paged_arenas():
             for k, v in arena.stats().items():
                 agg[k] = agg.get(k, 0.0) + v
+        if not agg:
+            return None
         agg["kv_page_occupancy"] = (
             agg["kv_pages_used"] / max(agg["kv_pages_total"], 1.0))
         agg["kv_pages_saved"] = agg["kv_shared_page_hits"]

@@ -92,14 +92,14 @@ def _engine(pkg, cfg=None, *, tenants=(("a", 0),), kv_slots=3, max_seq=48,
     the same values and installs match (as `test_torch_residency.py`
     does); the model casts to bf16 at use, so tokens do not move."""
     cfg_kv = (cfg or {}).get("kv_cache_dtype", "bf16")
-    kw = dict(kv_slots=kv_slots, max_seq=max_seq, page_size=page,
-              n_pages=n_pages, prefix_cache=prefix_cache,
+    kw = dict(kv_slots=kv_slots, max_seq=max_seq, kv_layout="paged",
+              page_size=page, n_pages=n_pages, prefix_cache=prefix_cache,
               prefix_cache_pages=prefix_cache_pages)
     extra = {} if clock is None else {"clock": clock}
     if pkg == "ref":
         c = dc.replace(RCFG, kv_cache_dtype=cfg_kv)
         return RefServingEngine(
-            [RefEngineModel(name, _ref_params(seed), c, kv_layout="paged",
+            [RefEngineModel(name, _ref_params(seed), c,
                             kernel_backend="xla", **kw)
              for name, seed in tenants],
             sched=RefSchedulerConfig(max_prefill_per_step=max_prefill,
@@ -668,7 +668,8 @@ def test_engine_cli_chunked_prefix_cache_serves_on_cpu(capsys):
     args = serve._parser().parse_args(
         ["--engine", "--smoke", "--device", "cpu", "--requests", "4",
          "--prompt-len", "12", "--gen", "4", "--prefill-chunk", "4",
-         "--prefill-token-budget", "8", "--prefix-cache"])
+         "--prefill-token-budget", "8", "--kv-layout", "paged",
+         "--prefix-cache"])
     serve._run_engine(args)
     out = capsys.readouterr().out
     assert "finished 4 requests" in out

@@ -73,7 +73,8 @@ def _run_port(fuse, kv, sampled=True):
     cfg = dc.replace(CFG, kv_cache_dtype=kv)
     eng = ServingEngine(
         [EngineModel("a", PARAMS, cfg, kv_slots=3, max_seq=24,
-                     page_size=PAGE, n_pages=10, prefix_cache=True)],
+                     kv_layout="paged", page_size=PAGE, n_pages=10,
+                     prefix_cache=True)],
         sched=SchedulerConfig(max_prefill_per_step=2), fuse_sampling=fuse,
         device="cpu")
     return _schedule(eng, cfg.vocab, sampled=sampled)
@@ -127,7 +128,8 @@ def test_sample_tokens_matches_per_row_sampler():
 
 def test_engine_rejects_oversized_and_unknown_requests():
     eng = ServingEngine([EngineModel("a", PARAMS, CFG, kv_slots=2,
-                                     max_seq=16, page_size=PAGE)],
+                                     max_seq=16, kv_layout="paged",
+                                     page_size=PAGE)],
                         device="cpu")
     assert eng.submit("a", [1] * 30, max_new_tokens=4).status.value == \
         "rejected"

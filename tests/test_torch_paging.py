@@ -69,6 +69,8 @@ def test_page_write_and_copy_bit_for_bit(kv, n_layers):
 
 
 def test_kv_quant_bit_for_bit():
+    """Against the reference's `_kv_quant` as its serving paths run it,
+    inside a jit (where XLA turns its division by 127 into a product)."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 9, 4, 32)).astype(np.float32)
     x[0, 0] = 0.0                        # all-zero rows hit the 1e-8 clamp
@@ -76,7 +78,7 @@ def test_kv_quant_bit_for_bit():
     for jx, tx in ((jnp.asarray(x), torch.from_numpy(x)),
                    (jnp.asarray(x, jnp.bfloat16),
                     torch.from_numpy(x).bfloat16())):
-        rc, rs = ref_kv_quant(jx)
+        rc, rs = jax.jit(ref_kv_quant)(jx)
         tc, ts = _kv_quant(tx)
         assert tc.dtype == torch.int8
         np.testing.assert_array_equal(tc.numpy(), np.asarray(rc))

@@ -243,7 +243,8 @@ def _engine_run(pkg, params, arm, jobs):
         else (EngineModel, ServingEngine, SchedulerConfig, InstallCostModel,
               VirtualClock, drive_simulated))
     cfg = RCFG if ref else CFG
-    extra = dict(kv_layout="paged", kernel_backend="xla") if ref else {}
+    extra = (dict(kv_layout="paged", kernel_backend="xla") if ref
+             else dict(kv_layout="paged"))
     kw = {} if ref else {"device": "cpu"}
     clock = VC()
     eng = SE([EM("a", params["a"], cfg, kv_slots=3, max_seq=MAX_SEQ,
@@ -317,8 +318,8 @@ def test_pipeline_never_evicts_the_decoding_tenant_mid_turn(params):
     step."""
     clock = VirtualClock()
     eng = ServingEngine(
-        [EngineModel(n, params[n][1], CFG, kv_slots=3, max_seq=MAX_SEQ)
-         for n in ("a", "b")],
+        [EngineModel(n, params[n][1], CFG, kv_slots=3, max_seq=MAX_SEQ,
+                     kv_layout="paged") for n in ("a", "b")],
         weight_arena_slots=CFG.n_layers + 1,
         sched=SchedulerConfig(max_prefill_per_step=2,
                               model_turn_steps=TURN_STEPS),
@@ -357,15 +358,18 @@ def test_f32_and_bf16_params_compute_the_same_logits(params):
 
 def test_engine_rejects_overlap_without_ticks(params):
     with pytest.raises(ValueError, match="install_ticks_per_step"):
-        ServingEngine([EngineModel("a", params["a"][1], CFG)],
+        ServingEngine([EngineModel("a", params["a"][1], CFG,
+                                   kv_layout="paged")],
                       overlap_installs=True, device="cpu")
 
 
 def test_default_arena_holds_every_tenant(params):
     """Without weight_arena_slots every tenant's layers fit at once: both
     tenants run every step and only cold installs happen."""
-    eng = ServingEngine([EngineModel("a", params["a"][1], CFG, max_seq=24),
-                         EngineModel("b", params["b"][1], CFG, max_seq=24)],
+    eng = ServingEngine([EngineModel("a", params["a"][1], CFG, max_seq=24,
+                                     kv_layout="paged"),
+                         EngineModel("b", params["b"][1], CFG, max_seq=24,
+                                     kv_layout="paged")],
                         device="cpu")
     assert eng.residency.arena_slots == 2 * CFG.n_layers
     eng.submit("a", [3, 4, 5], max_new_tokens=3)
