@@ -14,7 +14,7 @@ Phases (any failure exits non-zero before the last line):
      path gives it and at the shapes its design finds hard (paged: stale
      garbage past every row's position, G 1 to 16, head dims 8 to 256,
      rows of 8,192 tokens, timed cold, phase 8's page views of contiguous
-     caches; flash: every native head dim and
+     caches, phase 9's tables with retired pages skipped; flash: every native head dim and
      the zero-padded ones, GQA up to G 16, ragged, causal and full, S 512
      and 1000, the streaming B 4 x S 512; the f32 attention kernels
      against plain versions whose products stay in full f32, paged at 3e-4
@@ -69,13 +69,31 @@ Phases (any failure exits non-zero before the last line):
      default `--engine` at smoke size in a subprocess (two tenants through
      n_layers + 1 weight slots, virtual clock, trace and metrics files
      checked, one pulse_count launch per residency pair cost);
-  9. print the `kernels` JSON line, then the result line.
+  9. the wear, fault and telemetry planes at gemma-7b's full width: phase
+     6's two tenants and requests on the paged layout, every request
+     submitted up front, behind an arena of n_layers + 2 slots with
+     instant installs, in two arms on one schedule, stepped in turns: (A)
+     every knob off; (B) wear-aware placement, seeded stuck-at faults (a
+     plan that retires >= 1 weight slot and >= 2 KV pages, checked before
+     the run), ITL and TTFT SLOs, events JSONL, a 64-step flight
+     recorder, the step watchdog at 2 s, the wear map and Prometheus text
+     into build/phase9, and the /metrics endpoint read once over
+     localhost; B's greedy tokens must equal A's for every request, its
+     exporters validate, a first switch's pair accounting must leave a
+     stall_suspected dump, paged, flash and pulse_count (no other kernel)
+     launch in each arm, the decode-only step walls of the two arms
+     are compared step by step and 12 steps of each run under cProfile,
+     and one of B's decode calls over retired-page tables is held against
+     the plain version; then (C) wear-aware placement alone, for the
+     blend's share of the weight Gini;
+ 10. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -266,22 +284,29 @@ def tensor_core_counts(build):
 
 # ------------------------------------------------------------ phase 2
 def paged_inputs(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
-                 dtype=None):
+                 dtype=None, skip=()):
     """Random q and pools (bf16 unless `dtype`), a random page table and
     per-row positions; every pool position past a row's pos — inside its
     live page and in its later pages — holds 1e4 garbage.  The default
     positions start a row at 0, end rows exactly on a page boundary and
     one token past one, and end the last rows at the table's last
-    tokens."""
+    tokens.  No table names page 0 or a page id in `skip` (retired
+    pages): the pool holds them, with garbage."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    P = B * T + 1
+    P = B * T + 1 + len(skip)
     dtype = dtype or torch.bfloat16
     q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
     k = torch.randn(P, page, Hkv, D, generator=g, device=dev).to(dtype)
     v = torch.randn(P, page, Hkv, D, generator=g, device=dev).to(dtype)
-    perm = torch.randperm(P - 1, generator=g, device=dev)[:B * T] + 1
-    tables = perm.view(B, T).to(torch.int32)
+    keep = torch.tensor([i for i in range(1, P) if i not in skip],
+                        device=dev)
+    tables = keep[torch.randperm(P - 1 - len(skip), generator=g,
+                                 device=dev)[:B * T]].view(B, T).to(
+                                     torch.int32)
+    for i in (0, *skip):
+        k[i] = 1e4
+        v[i] = 1e4
     cap = T * page
     if pos_list is None:
         pos_list = [0, page - 1, page, 3 * page + 5, cap // 2 + 7,
@@ -327,7 +352,7 @@ def check_split_plan(torch, library="paged_attention"):
 
 
 def check_paged(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
-                timed=True, dtype=None):
+                timed=True, dtype=None, skip=()):
     """Kernel vs plain within KERNEL_TOL (F32_TOL for f32 inputs, the plain
     version's products in full f32) on stale-garbage pools, and the
     kernel's output identical over repeats; when `timed`, the kernel's, the
@@ -337,7 +362,8 @@ def check_paged(torch, B, H, Hkv, D, page, T, seed, pos_list=None,
     from repro_torch.kernels.paged_attention.ref import paged_attention_plain
     dev = torch.device("cuda")
     q, k, v, tables, pos, pos_list = paged_inputs(torch, B, H, Hkv, D, page,
-                                                  T, seed, pos_list, dtype)
+                                                  T, seed, pos_list, dtype,
+                                                  skip)
     tol = F32_TOL if q.dtype == torch.float32 else KERNEL_TOL
     ref = paged_attention_plain(q, k, v, tables, pos)
     out = paged_attention(q, k, v, tables, pos)
@@ -1759,6 +1785,477 @@ def default_cli(torch):
     return launches
 
 
+
+# ------------------------------------------------------------ phase 9
+PLANES_DIR = os.path.join(ROOT, "build", "phase9")   # gitignored
+# Seeded stuck-at faults at 0.4% per physical write.  The stream is a pure
+# function of (seed, plane, unit, write ordinal), and seed 6125003 gives:
+# weight slot 11 faults at its first write (the cold installs at step 0
+# fill slots 0-27 in order, so slot 11 is retired for sure) and no other
+# weight slot faults in its first 40 writes (the arena of n_layers + 2
+# would survive two); two first-write faults among pages 1-4 of the two KV
+# planes (a tenant's first request takes its pages 1-4 first, so two pages
+# are retired for sure).  `fault_plan` recomputes this before the run.
+FAULT_RATE = 0.004
+FAULT_SEED = 6125003
+SLO_ITL_P95_S = 0.02           # below the host-bound decode step
+SLO_TTFT_P95_S = 1.0
+STALL_TIMEOUT_S = 2.0          # below a first switch's pair accounting
+FLIGHT_STEPS = 64
+PROFILED_STEPS = range(32, 44)  # after both first switches
+CAPTURE_FROM = 20              # B's first later decode over retired pages
+
+
+def fault_plan(n_slots, planes=("kv:tenant-a", "kv:tenant-b")):
+    """The fault stream's decisions that make phase 9's plan (see
+    FAULT_SEED): weight slots faulting at their first write, weight-plane
+    faults in the first 40 writes of every slot, and first-write faults of
+    KV pages 1-4; checked before the run."""
+    from repro_torch.serving import FaultModel
+    u = FaultModel(FAULT_RATE, FAULT_SEED)._uniform
+    first = [s for s in range(n_slots) if u("weight", s, 0) < FAULT_RATE]
+    window = sum(u("weight", s, k) < FAULT_RATE
+                 for s in range(n_slots) for k in range(40))
+    pages = [(p, g) for p in planes for g in range(1, 5)
+             if u(p, g, 0) < FAULT_RATE]
+    if not (first and min(first) < n_slots - 2 and window <= 2
+            and len(pages) >= 2):
+        raise AssertionError(f"fault plan: first-write slot faults {first}, "
+                             f"{window} in the weight window, first-write "
+                             f"page faults {pages}")
+    return first, window, pages
+
+
+def planes_pages(requests):
+    """(max_seq, pages a tenant) of phase 9's paged arenas: 4 rows of
+    max_seq tokens at page 16, and 16 pages of headroom."""
+    max_seq = max(len(p) + n for _, p, n in requests)
+    return max_seq, 4 * -(-max_seq // 16) + 16
+
+
+def planes_paged_shape(cfg):
+    """(label, check_paged arguments) of phase 9's decode calls: its 4
+    rows of gemma-7b's heads over a table as wide as a tenant's pool, so
+    the split plan phase 9 launches; positions from the first decode to
+    the longest request's last, no page 0 and, as in arm B's tenant-b, not
+    the retired pages 3 and 4."""
+    max_seq, n_pages = planes_pages(two_tenant_requests(cfg))
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    label = (f"phase 9 B4 Hkv{Hkv} G{H // Hkv} D{D} page16 T{n_pages} "
+             f"(pages 3, 4 retired)")
+    return label, dict(B=4, H=H, Hkv=Hkv, D=D, page=16, T=n_pages, seed=13,
+                       pos_list=[64, 160, 255, max_seq - 1], skip=(3, 4))
+
+
+def read_endpoint(url):
+    """One GET of the local /metrics endpoint, with no proxy in the way."""
+    import urllib.request
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def planes_engine(torch, cfg, tenants, requests, **knobs):
+    """Phase 6's two tenants and requests, every request submitted up
+    front, on the paged layout at page 16 (4 decode rows a tenant, 16
+    pages of headroom) behind an arena of n_layers + 2 slots with instant
+    installs, on the engine's real clock; `knobs` are the planes.  Its
+    `_observe_step` is timed into `eng.observe_s`.  Returns (engine, build
+    s)."""
+    from repro_torch.serving import EngineModel, SchedulerConfig, ServingEngine
+    max_seq, n_pages = planes_pages(requests)
+    t0 = time.perf_counter()
+    eng = ServingEngine(
+        [EngineModel(name, params, cfg, kv_slots=4, max_seq=max_seq,
+                     kv_layout="paged", page_size=16, n_pages=n_pages)
+         for name, params in tenants.items()],
+        weight_arena_slots=cfg.n_layers + 2,
+        sched=SchedulerConfig(max_prefill_per_step=4,
+                              model_turn_steps=TURN_STEPS),
+        device="cuda", **knobs)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    for model, prompt, n_new in requests:
+        eng.submit(model, prompt, max_new_tokens=n_new)
+    eng.observe_s, observe_step = [], eng._observe_step
+
+    def timed_observe(*args):
+        t = time.perf_counter()
+        observe_step(*args)
+        eng.observe_s.append(time.perf_counter() - t)
+
+    eng._observe_step = timed_observe
+    return eng, t_build
+
+
+def step_in_turns(torch, engines, hook=None, max_steps=2000):
+    """Drive the engines' steps in turns (one step of each, in order, while
+    it has work), so that both arms' step k run side by side in time and
+    the host's drift between them cancels.  `hook(i, k)` may return a
+    context manager to run engine i's step k in (a profiler, a capture);
+    such a step's wall is None.  Returns, per engine, its step walls (s)
+    and the launches of each kernel made in its own steps."""
+    from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
+    from repro_torch.kernels.delta_apply.ops import apply_delta
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.pulse_count.ops import pulse_count
+    counters = {"paged_attention": paged_attention,
+                "flash_attention": flash_attention,
+                "pulse_count": pulse_count, "delta_apply": apply_delta,
+                "crossbar_mvm": crossbar_mvm}
+    walls = [[] for _ in engines]
+    launches = [dict.fromkeys(counters, 0) for _ in engines]
+    zero_launch_counts()
+    for k in range(max_steps):
+        if not any(e.has_work() for e in engines):
+            break
+        for i, (eng, wall, counts) in enumerate(zip(engines, walls,
+                                                    launches)):
+            if not eng.has_work():
+                continue
+            before = {n: c.launches for n, c in counters.items()}
+            ctx = hook and hook(i, k)
+            if ctx is None:
+                t = time.perf_counter()
+                eng.step()
+                wall.append(time.perf_counter() - t)
+            else:
+                with ctx:
+                    eng.step()
+                wall.append(None)
+            for n, c in counters.items():
+                counts[n] += c.launches - before[n]
+    else:
+        raise AssertionError(f"planes: work left after {max_steps} steps")
+    torch.cuda.synchronize()
+    return walls, launches
+
+
+@contextlib.contextmanager
+def profiled(prof):
+    """Run the block under one cProfile.Profile."""
+    prof.enable()
+    try:
+        yield
+    finally:
+        prof.disable()
+
+
+@contextlib.contextmanager
+def capture_paged(arena, out):
+    """Run the block with the decode step's paged_attention calls going
+    through a shim that, if the first call's table is `arena`'s, stores a
+    copy of that call's arguments in `out`; every call still launches the
+    kernel."""
+    from repro_torch.nn import attention as attn_mod
+    real, first = attn_mod.paged_attention, []
+
+    def record(q, kp, vp, table, pos):
+        if not first:
+            first.append(True)
+            if np.array_equal(table.cpu().numpy(), arena.tables_np):
+                out["args"] = tuple(x.clone() for x in (q, kp, vp, table,
+                                                        pos))
+        return real(q, kp, vp, table, pos)
+
+    with mock.patch.object(attn_mod, "paged_attention", record):
+        yield
+
+
+def planes_profile(profiles, steps, path):
+    """Host time by function of the profiled steps that are decode-only
+    in both arms (profiles[i] maps a step to its cProfile.Profile), as
+    arm B minus arm A per step; writes the whole table to `path` and
+    returns (steps, A and B profiled ms a step, the 12 largest rows)."""
+    import pstats
+    ks = sorted(k for k in profiles[0] if k in profiles[1] and all(
+        r[k].n_decoded and not r[k].n_prefills
+        and not r[k].install_wire_bytes for r in steps))
+    if not ks:
+        raise AssertionError("planes: no profiled decode-only step")
+    own = []
+    for prof in profiles:
+        st = pstats.Stats(prof[ks[0]])
+        for k in ks[1:]:
+            st.add(prof[k])
+        own.append({f"{os.path.basename(f)}:{line}({fn})": v[2] * 1e3
+                    / len(ks) for (f, line, fn), v in st.stats.items()})
+    a, b = own
+    rows = sorted(((b.get(n, 0.0) - a.get(n, 0.0), a.get(n, 0.0),
+                    b.get(n, 0.0), n) for n in set(a) | set(b)),
+                  reverse=True)
+    with open(path, "w") as f:
+        f.write("own ms a step: B - A, A, B, function\n")
+        for row in rows:
+            f.write("%.4f %.4f %.4f %s\n" % row)
+    return ks, sum(a.values()), sum(b.values()), rows[:12]
+
+
+def planes(torch, cfg, base):
+    """Phase 9: two gemma-7b tenants at full width (tenant-b phase 6's 2%
+    perturbation) on one schedule in two arms, stepped in turns: (A) every
+    knob off; (B) wear-aware placement, seeded stuck-at faults, telemetry
+    with ITL and TTFT SLOs, events JSONL, a flight recorder of
+    FLIGHT_STEPS steps, the step watchdog at STALL_TIMEOUT_S, the wear map
+    and Prometheus text into build/phase9, and /metrics served on
+    localhost and read once.  B's greedy tokens must equal A's for every
+    request; B retires >= 1 weight slot and >= 2 KV pages, leaves >= 1
+    stall_suspected dump and valid exporters, and spreads weight-slot
+    writes over its slots in service no less evenly than A (what the
+    wear-aware blend levels).  One of B's decode calls over the tables
+    of the tenant with retired pages is held against the plain version;
+    PROFILED_STEPS of both arms run under cProfile, for the planes' host
+    time by function.  Then (C) the wear-aware blend alone, on its own,
+    to part the blend's and the faults' shares of the weight Gini of cell
+    flips (printed for A, B and C; B <= A is printed, not required).
+    Returns the launches of arms A and B."""
+    import cProfile
+    import shutil
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         split_plan)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    from repro_torch.serving import (FlightRecorder, PromEndpoint,
+                                     SLOConfig, TelemetryConfig,
+                                     gini_coefficient, prometheus_text,
+                                     validate_events_jsonl,
+                                     validate_prometheus_text)
+    t_phase = time.perf_counter()
+    n_slots = cfg.n_layers + 2
+    first, window, pages = fault_plan(n_slots)
+    log(f"fault plan (rate {FAULT_RATE}, seed {FAULT_SEED}): weight slots "
+        f"faulting at their first write {first}, {window} weight faults in "
+        f"the first 40 writes of {n_slots} slots, first-write page faults "
+        f"{pages}")
+    variant = perturb_on_device(torch, base)
+    tenants = {"tenant-a": base, "tenant-b": variant}
+    requests = two_tenant_requests(cfg)
+    shutil.rmtree(PLANES_DIR, ignore_errors=True)
+    os.makedirs(PLANES_DIR)
+    slo = SLOConfig(ttft_p95_s=SLO_TTFT_P95_S, itl_p95_s=SLO_ITL_P95_S)
+    events = os.path.join(PLANES_DIR, "events.jsonl")
+    recorder = FlightRecorder(FLIGHT_STEPS, out_dir=PLANES_DIR, max_dumps=64)
+    eng_a, build_a = planes_engine(torch, cfg, tenants, requests)
+    eng_b, build_b = planes_engine(
+        torch, cfg, tenants, requests, wear_aware=1.0, fault_rate=FAULT_RATE,
+        fault_seed=FAULT_SEED,
+        telemetry=TelemetryConfig(slo=slo, events_path=events),
+        recorder=recorder, stall_timeout_s=STALL_TIMEOUT_S)
+    profiles, capture = ({}, {}), {}
+
+    def hook(i, k):
+        if k in PROFILED_STEPS:
+            profiles[i][k] = cProfile.Profile()
+            return profiled(profiles[i][k])
+        if i == 1 and k >= CAPTURE_FROM and "args" not in capture:
+            name = max(eng_b.arenas, key=lambda n: len(
+                eng_b.arenas[n].allocator.retired))
+            capture["tenant"] = name
+            return capture_paged(eng_b.arenas[name], capture)
+        return None
+
+    t0 = time.perf_counter()
+    (walls_a, walls_b), (launches_a, launches_b) = step_in_turns(
+        torch, (eng_a, eng_b), hook)
+    t_serve = time.perf_counter() - t0
+    eng_b.telemetry.close()
+    render = lambda: prometheus_text(eng_b.metrics.registry,  # noqa: E731
+                                     eng_b.telemetry)
+    endpoint = PromEndpoint(0, render)
+    try:
+        scraped = read_endpoint(f"http://127.0.0.1:{endpoint.port}/metrics")
+    finally:
+        endpoint.close()
+    prom = render()
+    with open(os.path.join(PLANES_DIR, "prom.txt"), "w") as f:
+        f.write(prom)
+    with open(os.path.join(PLANES_DIR, "wear.json"), "w") as f:
+        json.dump(eng_b.wear.as_json(), f, indent=2, sort_keys=True)
+        f.write("\n")
+    with open(events) as f:
+        event_text = f.read()
+    errors = (validate_prometheus_text(scraped)
+              + validate_prometheus_text(prom)
+              + validate_events_jsonl(event_text))
+    kinds = [json.loads(line)["type"] for line in event_text.splitlines()]
+    dumps = {}
+    for path in recorder.dumps:
+        reason = os.path.basename(path).split("-", 2)[2][:-len(".json")]
+        dumps[reason] = dumps.get(reason, 0) + 1
+    health = eng_b.health()
+    # arming and disarming the watchdog, outside a step
+    t0 = time.perf_counter()
+    for _ in range(200):
+        with eng_b.watchdog.armed(-1):
+            pass
+    arm_ms = (time.perf_counter() - t0) / 200 * 1e3
+
+    def arm_report(arm, eng, walls, launches, t_build):
+        reqs = list(eng.requests.values())
+        if not all(r.status.value == "finished"
+                   and len(r.generated) == r.max_new_tokens
+                   and all(0 <= t < cfg.vocab for t in r.generated)
+                   for r in reqs):
+            raise AssertionError(f"planes arm {arm}: not every request "
+                                 f"finished inside the vocab")
+        summary = eng.summary()
+        writes = eng.wear.plane("weight").writes
+        spread = gini_coefficient([w for slot, w in enumerate(writes)
+                                   if slot not in eng.residency.retired])
+        own = [w for w in walls if w is not None]
+        log(f"planes arm {arm}: store built in {t_build:.2f} s; "
+            f"{int(summary['tokens_generated'])} tokens in {sum(own):.3f} "
+            f"s of its own unprofiled steps, {int(summary['steps'])} steps, "
+            f"{int(summary['installs'])} installs, "
+            f"{int(summary['preemptions'])} preemptions; launches "
+            f"{json.dumps(launches)}")
+        log(f"planes arm {arm}: install energy "
+            f"{summary['install_energy_j'] * 1e3:.4f} mJ, KV write energy "
+            f"{summary['kv_write_energy_j'] * 1e3:.4f} mJ, weight Gini "
+            f"{summary['wear_gini_weight']:.4f} (cell flips; of writes "
+            f"{spread:.4f} over the slots in service), KV Gini "
+            f"{summary['wear_gini_kv']:.4f}; slots retired "
+            f"{int(summary['slots_retired'])}, pages retired "
+            f"{int(summary['pages_retired'])}, faults survived "
+            f"{int(summary['faults_survived'])}")
+        if not (launches["paged_attention"] and launches["flash_attention"]
+                and launches["pulse_count"]
+                and not launches["delta_apply"]
+                and not launches["crossbar_mvm"]):
+            raise AssertionError(f"planes arm {arm}: launches {launches}")
+        return (summary, {r.rid: list(r.generated) for r in reqs}, spread,
+                eng.metrics.steps)
+
+    summary_a, tokens_a, spread_a, steps_a = arm_report(
+        "A", eng_a, walls_a, launches_a, build_a)
+    summary_b, tokens_b, spread_b, steps_b = arm_report(
+        "B", eng_b, walls_b, launches_b, build_b)
+    # decode-only steps (no prefill, no install) of both arms, paired by
+    # step number, neither profiled nor captured: the host cost of the
+    # planes, step k of A beside step k of B
+    pairs = [(wa, wb) for wa, wb, ra, rb in zip(walls_a, walls_b, steps_a,
+                                                steps_b)
+             if wa is not None and wb is not None
+             and all(r.n_decoded and not r.n_prefills
+                     and not r.install_wire_bytes for r in (ra, rb))]
+    med = statistics.median
+    log(f"planes: steps in turns, {t_serve:.1f} s for both arms; "
+        f"decode-only step wall over {len(pairs)} paired steps: A median "
+        f"{med(a for a, _ in pairs) * 1e3:.2f} ms, B median "
+        f"{med(b for _, b in pairs) * 1e3:.2f} ms, B - A median "
+        f"{med(b - a for a, b in pairs) * 1e3:.2f} ms (B slower in "
+        f"{sum(b > a for a, b in pairs)} of {len(pairs)}); the planes' own "
+        f"host time in B: _observe_step median "
+        f"{med(eng_b.observe_s) * 1e3:.3f} ms (max "
+        f"{max(eng_b.observe_s) * 1e3:.3f}), arming and disarming the "
+        f"watchdog {arm_ms:.3f} ms")
+    ks, prof_a, prof_b, top = planes_profile(
+        profiles, (steps_a, steps_b), os.path.join(PLANES_DIR,
+                                                   "profile.txt"))
+    log(f"planes: cProfile of {len(ks)} decode-only steps {ks} in each arm: "
+        f"own time {prof_a:.2f} ms a step in A, {prof_b:.2f} in B (B - A "
+        f"{prof_b - prof_a:.2f} ms, profiler included); largest B - A "
+        f"(ms a step: B - A, A, B):")
+    for d, a, b, name in top:
+        log(f"  {d:+.4f} {a:.4f} {b:.4f} {name}")
+
+    # one of B's decode calls over the tables of the tenant with retired
+    # pages, against the plain version on the same inputs
+    if "args" not in capture:
+        raise AssertionError("planes: no decode call on the tables of the "
+                             "tenant with retired pages captured")
+    q, kp, vp, table, pos = capture["args"]
+    tenant = capture["tenant"]
+    plain = paged_attention_plain(q, kp, vp, table, pos)
+    out = paged_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    paged_err = (out.float() - plain.float()).abs().max().item()
+    B, H, D = q.shape
+    Hkv, T = kp.shape[2], table.shape[1]
+    retired_b = eng_b.arenas[tenant].allocator.retired
+    live = {int(x) for row, p in zip(table.tolist(), pos.tolist())
+            for x in row[:p // kp.shape[1] + 1]}
+    plan = split_plan(T, kp.shape[1], B * Hkv, H // Hkv, D, q.device)[:2]
+    log(f"planes arm B: a decode call on {tenant}'s tables: B {B}, H {H}, "
+        f"Hkv {Hkv}, D {D}, page {kp.shape[1]}, T {T}, positions "
+        f"{pos.tolist()}, split plan (splits, pages a split) {plan}; "
+        f"retired pages {sorted(retired_b)} named by no live table entry: "
+        f"{not live & retired_b}; kernel vs plain max abs err "
+        f"{paged_err:.3g} (tolerance {KERNEL_TOL})")
+    if not (paged_err <= KERNEL_TOL and torch.isfinite(out).all()
+            and retired_b and not live & retired_b):
+        raise AssertionError(f"planes: captured decode call: err "
+                             f"{paged_err}, live pages {sorted(live)}, "
+                             f"retired {sorted(retired_b)}")
+    del q, kp, vp, table, pos, plain, out, capture
+
+    res = eng_b.residency
+    max_writes = max(eng_b.faults._ordinal.get(("weight", s), 0)
+                     for s in range(n_slots))
+    retired_pages = {name: sorted(a.allocator.retired)
+                     for name, a in eng_b.arenas.items()}
+    log(f"planes arm B: retired weight slots {sorted(res.retired)}, "
+        f"retired pages {json.dumps(retired_pages)}; fault checks "
+        f"{eng_b.faults.checks}, faults {eng_b.faults.faults}; most writes "
+        f"to one weight slot {max_writes}")
+    log(f"planes arm B: watchdog fires {eng_b.watchdog.fires}; "
+        f"{kinds.count('slo_breach')} slo_breach and "
+        f"{kinds.count('slo_recover')} slo_recover events, "
+        f"{kinds.count('step')} step and {kinds.count('finish')} finish "
+        f"events; flight dumps by reason {json.dumps(dumps)} "
+        f"({len(recorder.triggers)} triggers); health ok {health['ok']}, "
+        f"slo {json.dumps(health.get('slo', {}))}")
+    log(f"planes arm B: /metrics on 127.0.0.1:{endpoint.port} read once "
+        f"({len(scraped)} bytes, {len(scraped.splitlines())} lines), "
+        f"validator errors {errors}; wear map, events, Prometheus text, "
+        f"profile and {len(recorder.dumps)} flight dumps in {PLANES_DIR}")
+
+    same = sum(tokens_a[rid] == tokens_b[rid] for rid in tokens_a)
+    log(f"planes: greedy tokens of B equal A's in {same} of "
+        f"{len(tokens_a)} requests")
+    if tokens_b != tokens_a:
+        raise AssertionError(f"planes: the planes changed tokens: A "
+                             f"{tokens_a}, B {tokens_b}")
+    if not (summary_b["slots_retired"] >= 1
+            and summary_b["pages_retired"] >= 2
+            and summary_a["faults_survived"] == 0
+            and dumps.get("stall_suspected", 0) >= 1
+            and spread_b <= spread_a
+            and not errors and scraped == prom):
+        raise AssertionError(
+            f"planes: slots retired {summary_b['slots_retired']}, pages "
+            f"retired {summary_b['pages_retired']}, dumps {dumps}, Gini of "
+            f"weight-slot writes in service {spread_b} vs {spread_a}, "
+            f"exporter errors {errors}")
+    del eng_a, eng_b, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (C) the blend alone, no faults, no telemetry
+    eng_c, build_c = planes_engine(torch, cfg, tenants, requests,
+                                   wear_aware=1.0)
+    walls_c, launches_c = step_in_turns(torch, (eng_c,))
+    summary_c, tokens_c, spread_c, _ = arm_report(
+        "C (wear-aware alone)", eng_c, walls_c[0], launches_c[0], build_c)
+    if tokens_c != tokens_a or summary_c["faults_survived"]:
+        raise AssertionError(f"planes arm C: tokens {tokens_c} against A's "
+                             f"{tokens_a}")
+    flips = [s["wear_gini_weight"] for s in (summary_a, summary_c,
+                                             summary_b)]
+    log(f"planes: weight Gini of cell flips A {flips[0]:.4f}, C (wear-aware "
+        f"alone) {flips[1]:.4f}, B (wear-aware and faults) {flips[2]:.4f}; "
+        f"B <= A {'holds' if flips[2] <= flips[0] else 'does not hold'}, "
+        f"C <= A {'holds' if flips[1] <= flips[0] else 'does not hold'} "
+        f"(printed, not required); Gini of writes over the slots in "
+        f"service A {spread_a:.4f}, C {spread_c:.4f}, B {spread_b:.4f} "
+        f"(B <= A required)")
+    del eng_c, variant
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 (wear, faults, telemetry): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches_a, launches_b
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1823,6 +2320,9 @@ def main() -> int:
     for label, shape in PAGED_PATH_SHAPES.items():
         err = check_paged(torch, **shape, timed=False)[0]
         log(f"paged_attention {label}: err {err:.3g}")
+    label, shape = planes_paged_shape(get_config("gemma-7b"))
+    err = check_paged(torch, **shape, timed=False)[0]
+    log(f"paged_attention {label}: err {err:.3g}")
     plans = check_split_plan(torch)
     log(f"paged_attention split plans (splits, pages per split) of the "
         f"long tables: {plans}")
@@ -2018,7 +2518,14 @@ def main() -> int:
     log(f"phase 8 (slot layout, default mode, default CLI): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # phase 9: report
+    # phase 9: the wear, fault and telemetry planes at full width
+    plane_launches = planes(torch, cfg, params)
+
+    # phase 10: report
+    def planes_fields(name):
+        return {arm: launches[name]
+                for arm, launches in zip(("off", "on"), plane_launches)}
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -2033,6 +2540,7 @@ def main() -> int:
          "chunked_launches": c_launches["paged_attention"],
          "slot_launches": slot_launches["paged_attention"],
          "default_mode_launches": greedy_launches["paged_attention"],
+         "planes_launches": planes_fields("paged_attention"),
          **f32_fields(errs32["paged"], paged32[PAGED_F32_MAIN], None),
          "f32_cold_ms_by_shape": {k: v[1] for k, v in paged32.items()}},
         {"name": "flash_attention", "route": "cuda",
@@ -2048,6 +2556,7 @@ def main() -> int:
          "chunked_launches": c_launches["flash_attention"],
          "slot_launches": slot_launches["flash_attention"],
          "default_mode_launches": greedy_launches["flash_attention"],
+         "planes_launches": planes_fields("flash_attention"),
          **f32_fields(errs32["flash"], flash32[16], flash32[16][3]),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
          "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},
@@ -2060,7 +2569,8 @@ def main() -> int:
          "bound_ms": delta[LAYER_CODES][4][0],
          "bound_by": delta[LAYER_CODES][4][1],
          "library_ms": delta[LAYER_CODES][3],
-         "slot_launches": slot_launches["delta_apply"]},
+         "slot_launches": slot_launches["delta_apply"],
+         "planes_launches": planes_fields("delta_apply")},
         {"name": "pulse_count", "route": "cuda",
          "source": "src/repro_torch/kernels/pulse_count/csrc/pulse_count.cu",
          "replaces": "src/repro/kernels/pulse_count/kernel.py:32",
@@ -2070,7 +2580,8 @@ def main() -> int:
          "bound_ms": pulses[LAYER_CODES][4][0],
          "bound_by": pulses[LAYER_CODES][4][1], "library_ms": None,
          "two_tenant_launches": t_launches["pulse_count"],
-         "slot_launches": cli_launches["pulse_count"]},
+         "slot_launches": cli_launches["pulse_count"],
+         "planes_launches": planes_fields("pulse_count")},
         {"name": "crossbar_mvm", "route": "cuda",
          "source": "src/repro_torch/kernels/crossbar_mvm/csrc/"
                    "crossbar_mvm.cu",
@@ -2078,7 +2589,8 @@ def main() -> int:
          "launches": x_launches, "max_abs_err": xb[0], "ms": xb[1],
          "plain_ms": xb[2], "bound_ms": xb[4][0], "bound_by": xb[4][1],
          "library_ms": xb[3],
-         "slot_launches": slot_launches["crossbar_mvm"]},
+         "slot_launches": slot_launches["crossbar_mvm"],
+         "planes_launches": planes_fields("crossbar_mvm")},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

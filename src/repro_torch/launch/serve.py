@@ -4,10 +4,12 @@ continuous-batching engine over two tenants (`--engine`), tenant-b a
 perturbed variant of tenant-a, both behind one ARAS weight arena of
 `--weight-slots` layers, with whole-sequence KV slots or a paged KV cache
 (`--kv-layout`), monolithic or chunked prefill (with the radix prefix
-cache's chunk skip on the paged layout), fused or split sampling, and a
-Chrome trace and metrics dump on request; or one forward of the ARAS
-layer-streaming executor, whose arena holds only `--arena-slots` layers
-(`--streaming`).
+cache's chunk skip on the paged layout), fused or split sampling,
+wear-aware placement and seeded stuck-at faults, the live telemetry plane
+(SLOs, Prometheus text or endpoint, JSONL events, flight recorder, step
+watchdog), and a Chrome trace, metrics and wear-map dump on request; or
+one forward of the ARAS layer-streaming executor, whose arena holds only
+`--arena-slots` layers (`--streaming`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
         --batch 4 --prompt-len 512 --gen 32
@@ -18,6 +20,11 @@ layer-streaming executor, whose arena holds only `--arena-slots` layers
         --metrics-json metrics.json
     PYTHONPATH=src python -m repro_torch.launch.serve --engine --smoke \
         --device cpu --kv-layout paged --prefill-chunk 4 --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine --smoke \
+        --device cpu --virtual-clock --kv-layout paged --page-size 4 \
+        --wear-aware --fault-rate 0.05 --fault-seed 7 --wear-json wear.json \
+        --slo-itl-p95 0.001 --events-out events.jsonl --prom-out prom.txt \
+        --flight-recorder-steps 16
     PYTHONPATH=src python -m repro_torch.launch.serve --streaming \
         --arch gemma-7b --arena-slots 3 --batch 4 --prompt-len 512
 """
@@ -37,10 +44,12 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
 # serving before launch.steps: the steps module imports serving.sampling,
 # whose package imports the engine, which imports the steps
-from repro_torch.serving import (EngineModel, InstallCostModel,
-                                 SchedulerConfig, ServingEngine, Tracer,
-                                 VirtualClock, drive_simulated,
-                                 format_summary)
+from repro_torch.serving import (EngineModel, FlightRecorder,
+                                 InstallCostModel, PromEndpoint,
+                                 SchedulerConfig, ServingEngine, SLOConfig,
+                                 TelemetryConfig, Tracer, VirtualClock,
+                                 drive_simulated, format_summary,
+                                 prometheus_text)
 from repro_torch.launch.steps import cached_prefill_step, cached_serve_step
 from repro_torch.nn.model import init_params
 from repro_torch.serving.variants import perturbed_variant
@@ -69,7 +78,9 @@ def engine_setup(args, params=None):
     tenants' layer sets, so a tenant switch installs layers.  `params` are
     tenant-a's (default: `init_params(cfg, seed=0)` on `args.device`).
     --virtual-clock puts the engine, and the tracer that --trace-out asks
-    for, on one VirtualClock.  Returns (engine, clock)."""
+    for, on one VirtualClock.  Any SLO or exporter flag turns the live
+    telemetry plane on; --flight-recorder-steps adds the flight recorder.
+    Returns (engine, clock)."""
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.prefix_cache and args.kv_layout != "paged":
         raise SystemExit("--prefix-cache needs --kv-layout paged "
@@ -84,9 +95,24 @@ def engine_setup(args, params=None):
     tenants = [EngineModel("tenant-a", base, cfg, **kv),
                EngineModel("tenant-b", variant, cfg, **kv)]
     clock = VirtualClock() if args.virtual_clock else time.perf_counter
+    slo = None
+    if args.slo_ttft_p95 or args.slo_itl_p95 or args.slo_queue_wait_p95:
+        slo = SLOConfig(ttft_p95_s=args.slo_ttft_p95,
+                        itl_p95_s=args.slo_itl_p95,
+                        queue_wait_p95_s=args.slo_queue_wait_p95)
+    telemetry = None
+    if (slo is not None or args.events_out or args.prom_out
+            or args.prom_port):
+        telemetry = TelemetryConfig(window=args.telemetry_window, slo=slo,
+                                    events_path=args.events_out)
+    recorder = (FlightRecorder(args.flight_recorder_steps,
+                               out_dir=args.flight_dir)
+                if args.flight_recorder_steps else None)
     eng = ServingEngine(
         tenants, weight_arena_slots=args.weight_slots or cfg.n_layers + 1,
         tracer=Tracer(clock=clock) if args.trace_out else None, clock=clock,
+        telemetry=telemetry, recorder=recorder,
+        stall_timeout_s=args.stall_timeout_s,
         sched=SchedulerConfig(max_prefill_per_step=4,
                               model_turn_steps=args.turn_steps,
                               policy=args.queue_policy,
@@ -100,6 +126,9 @@ def engine_setup(args, params=None):
         install_cost=InstallCostModel(
             bytes_per_tick=args.install_bytes_per_tick),
         fuse_sampling=not args.no_fuse_sampling,
+        wear_aware=args.wear_aware,
+        fault_rate=args.fault_rate,
+        fault_seed=args.fault_seed,
         device=args.device)
     return eng, clock
 
@@ -108,12 +137,26 @@ def _run_engine(args, params=None) -> ServingEngine:
     """`repro.launch.serve --engine`: submit `--requests` random prompts,
     alternating between the tenants (with --virtual-clock at Poisson
     arrival times in simulated time, through `drive_simulated`), serve them
-    and print the summary.  The trace and the metrics dump are written
+    and print the summary (and, with telemetry on, the health snapshot).
+    The trace, metrics, wear map, Prometheus text and events are written
     once: at the end, or at exit if the run is interrupted (Ctrl-C, or
-    SIGTERM turned into a normal exit)."""
+    SIGTERM turned into a normal exit).  With the flight recorder on,
+    SIGUSR1 dumps its ring and an unhandled exception dumps it on the way
+    down; --prom-port serves /metrics on localhost while the run lasts."""
     eng, clock = engine_setup(args, params)
     cfg = get_config(args.arch, smoke=args.smoke)
     names = list(eng.models)
+    recorder = eng.recorder
+    if recorder is not None:
+        recorder.install_signal_handler()
+        recorder.install_excepthook()
+    endpoint = None
+    if args.prom_port:
+        endpoint = PromEndpoint(
+            args.prom_port,
+            lambda: prometheus_text(eng.metrics.registry, eng.telemetry))
+        print("prometheus endpoint on "
+              f"http://127.0.0.1:{endpoint.port}/metrics")
     done = {"flushed": False}
 
     def flush() -> None:
@@ -132,8 +175,24 @@ def _run_engine(args, params=None) -> ServingEngine:
                 json.dump(doc, f, indent=2, sort_keys=True)
                 f.write("\n")
             print(f"wrote metrics registry + summary to {args.metrics_json}")
+        if args.wear_json:
+            with open(args.wear_json, "w") as f:
+                json.dump(eng.wear.as_json(), f, indent=2, sort_keys=True)
+                f.write("\n")
+            print(f"wrote wear map ({len(eng.wear.planes)} planes) to "
+                  f"{args.wear_json}")
+        if args.prom_out:
+            with open(args.prom_out, "w") as f:
+                f.write(prometheus_text(eng.metrics.registry, eng.telemetry))
+            print(f"wrote Prometheus text exposition to {args.prom_out}")
+        if eng.telemetry is not None:
+            eng.telemetry.close()
+        if recorder is not None and recorder.dumps:
+            print(f"flight recorder wrote {len(recorder.dumps)} dump(s): "
+                  + ", ".join(recorder.dumps))
 
-    if args.trace_out or args.metrics_json:
+    if (args.trace_out or args.metrics_json or args.wear_json
+            or args.prom_out or args.events_out):
         atexit.register(flush)
         signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(1))
 
@@ -160,7 +219,12 @@ def _run_engine(args, params=None) -> ServingEngine:
           f"{args.kv_slots} KV slots each, weight arena "
           f"{eng.residency.arena_slots} slots, {layout}, on {eng.device}")
     print(format_summary(summary))
+    if eng.telemetry is not None:
+        print("health:", json.dumps(_json_safe(eng.health()),
+                                    sort_keys=True))
     flush()
+    if endpoint is not None:
+        endpoint.close()
     return eng
 
 
@@ -303,6 +367,68 @@ def _parser() -> argparse.ArgumentParser:
                    help="engine: dump the final summary and the typed "
                         "metrics registry (counters/gauges/histograms) as "
                         "JSON to this path")
+    p.add_argument("--wear-aware", type=float, nargs="?", const=1.0,
+                   default=0.0, metavar="WEIGHT",
+                   help="engine: blend install victim picking with per-slot "
+                        "write pressure and hand out the coldest free KV "
+                        "page first (Hamun-style wear leveling); optional "
+                        "value is the blend weight (bare flag = 1.0, "
+                        "0 = off, today's placement bit-for-bit)")
+    p.add_argument("--fault-rate", type=float, default=0.0,
+                   help="engine: seeded stuck-at fault probability per "
+                        "physical write (weight slots + KV pages); faulted "
+                        "units are retired and remapped with token "
+                        "equivalence preserved (0 = no injection)")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="engine: seed for the deterministic fault stream "
+                        "(same seed + same schedule = same faults)")
+    p.add_argument("--wear-json", type=str, default="",
+                   help="engine: dump the per-plane wear map (write / "
+                        "cell-flip / pulse counts per weight slot and KV "
+                        "page, Gini, hottest-N, histogram) as JSON to this "
+                        "path; artifacts also flush on Ctrl-C/SIGTERM")
+    p.add_argument("--slo-ttft-p95", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="engine: TTFT p95 SLO target in seconds — "
+                        "evaluated as short+long burn-rate windows, "
+                        "breach/recover transitions emit trace instants "
+                        "and flight-recorder dumps (0 = untracked)")
+    p.add_argument("--slo-itl-p95", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="engine: worst inter-token-gap p95 SLO target in "
+                        "seconds (0 = untracked)")
+    p.add_argument("--slo-queue-wait-p95", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="engine: queue-wait p95 SLO target in seconds "
+                        "(0 = untracked)")
+    p.add_argument("--telemetry-window", type=int, default=128,
+                   help="engine: sliding-window size for live windowed "
+                        "percentiles (exact over the last N samples; "
+                        "lifetime P² estimators ride along at O(1))")
+    p.add_argument("--prom-out", type=str, default="",
+                   help="engine: write Prometheus text exposition "
+                        "(registry + live windows + SLO status) to this "
+                        "path at exit — the textfile-collector mode")
+    p.add_argument("--prom-port", type=int, default=0,
+                   help="engine: serve /metrics on this localhost port "
+                        "via a stdlib http.server daemon thread "
+                        "(0 = no endpoint)")
+    p.add_argument("--events-out", type=str, default="",
+                   help="engine: append-mode JSONL event stream (per-step "
+                        "window snapshots, request finishes, SLO "
+                        "transitions) to this path")
+    p.add_argument("--flight-recorder-steps", type=int, default=0,
+                   help="engine: keep a flight-recorder ring of the last "
+                        "N steps (StepRecords + trace events + health), "
+                        "dumped to JSON on unit retirement, SLO breach, "
+                        "suspected stall, SIGUSR1, or crash (0 = off)")
+    p.add_argument("--flight-dir", type=str, default=".",
+                   help="engine: directory flight-recorder dumps are "
+                        "written into")
+    p.add_argument("--stall-timeout-s", type=float, default=0.0,
+                   help="engine: arm the step watchdog with this deadline "
+                        "— a step that overruns it emits stall_suspected "
+                        "+ a flight dump; observation only (0 = off)")
     p.add_argument("--virtual-clock", action="store_true",
                    help="engine: run on a VirtualClock with deterministic "
                         "simulated arrivals — every artifact is "

@@ -29,11 +29,23 @@ preempts the request, which re-prefills its prompt plus generated tokens
 on readmission; a freed slot keeps its stale rows, which the position
 mask never admits.
 
+Three observation planes ride along, as in the reference.  The wear plane
+counts every weight-slot install's cell flips and pulses and every KV
+page program per physical unit (`WearMap`) and prices them in joules
+(`EnergyModel`).  `wear_aware > 0` steers installs and page allocation
+toward cold units, and `fault_rate > 0` injects seeded stuck-at faults
+that retire a slot or page for good (the engine remaps, so tokens do not
+move).  The live-telemetry plane (windowed percentiles, SLO burn rates,
+JSONL events), the flight recorder and the step watchdog only observe:
+no scheduling decision reads them.
+
 The weight arena is an accounting model, as in the reference: every
 tenant's params stay on the device, and residency decides when a tenant
 runs, never what it computes.  For dense GQA tenants of either layout the
-greedy tokens, stall steps and install bytes match the reference engine's
-(`kernel_backend="xla"`) on the CPU.
+greedy tokens, stall steps, install bytes and the wear, fault and
+telemetry artifacts match the reference engine's (`kernel_backend="xla"`)
+on the CPU; a greedy pick at a bf16 tie can part, since XLA sums a
+batched bf16 product in another order than torch does.
 """
 from __future__ import annotations
 
@@ -47,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.ft import Watchdog
 from repro_torch.launch.steps import (cached_chunk_prefill_step,
                                       cached_prefill_step,
                                       cached_serve_step,
@@ -59,15 +72,20 @@ from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.model import init_cache
 from repro_torch.serving.bucketing import (PrefillProgress, bucket_for,
                                            bucket_ladder)
+from repro_torch.serving.faults import FaultModel
 from repro_torch.serving.kv_arena import KVArena
 from repro_torch.serving.metrics import EngineMetrics, StepRecord
 from repro_torch.serving.paging import PagedKVArena
+from repro_torch.serving.recorder import FlightRecorder
 from repro_torch.serving.request import Request, RequestStatus
 from repro_torch.serving.residency import (InstallPipeline,
                                            WeightResidencyManager)
 from repro_torch.serving.sampling import request_key, sample_token
 from repro_torch.serving.scheduler import SchedulerConfig, StepScheduler
+from repro_torch.serving.telemetry import EngineTelemetry, TelemetryConfig
 from repro_torch.serving.tracing import NULL_TRACER, Tracer
+from repro_torch.serving.wear import WearMap
+from repro_torch.sim.energy import EnergyModel
 from repro_torch.streaming.plan import InstallCostModel
 
 _log = logging.getLogger(__name__)
@@ -120,7 +138,14 @@ class ServingEngine:
                  bucket_min: int = 8,
                  staging_growth: float = 2.0,
                  tracer: Optional[Tracer] = None,
+                 energy_model: Optional[EnergyModel] = None,
+                 wear_aware: float = 0.0,
+                 fault_rate: float = 0.0,
+                 fault_seed: int = 0,
                  fuse_sampling: bool = True,
+                 telemetry: Optional[TelemetryConfig] = None,
+                 recorder: Optional[FlightRecorder] = None,
+                 stall_timeout_s: float = 0.0,
                  device="cuda"):
         if not models:
             raise ValueError("need at least one tenant model")
@@ -171,6 +196,66 @@ class ServingEngine:
         self.scheduler = StepScheduler(sched)
         self.scheduler.tracer = self.tracer
         self.metrics = EngineMetrics()
+
+        # Live telemetry plane (all observation-only — no scheduling
+        # decision ever reads a telemetry value, so enabling any of it is
+        # token-identical to defaults-off).  telemetry: streaming windowed
+        # percentiles + SLO burn tracking, fed per step / per finished
+        # request.  recorder: a bounded flight ring dumped on retirement /
+        # SLO breach / stall / SIGUSR1 / crash.  stall_timeout_s > 0 arms
+        # the watchdog around every step as a serving heartbeat.
+        self.telemetry: Optional[EngineTelemetry] = (
+            EngineTelemetry(telemetry, tracer=self.tracer)
+            if telemetry is not None else None)
+        self.recorder = recorder
+        if recorder is not None:
+            recorder.tracer = self.tracer
+        self._retired_seen = 0          # retirement-delta dump trigger
+        self._stall_timeout_s = float(stall_timeout_s)
+        self.watchdog: Optional[Watchdog] = (
+            Watchdog(self._stall_timeout_s, on_timeout=self._on_stall)
+            if self._stall_timeout_s > 0 else None)
+
+        # Wear telemetry: one WearPlane per physical write plane — the
+        # weight arena's slots and each paged tenant's KV page pool —
+        # injected into the leaf modules like the tracer, and priced in
+        # joules through the energy model by `_wear_stats()`.
+        self.energy_model = energy_model or EnergyModel()
+        self.wear = WearMap()
+        self.residency.wear = self.wear.add_plane(
+            "weight", self.residency.arena_slots)
+        self.residency.flip_hist = self.metrics.registry.histogram(
+            "install_cell_flips")
+        for name, arena in self.arenas.items():
+            if isinstance(arena, PagedKVArena):
+                # first=1: device page 0 is the scratch page and never
+                # takes an accounted write
+                arena.wear = self.wear.add_plane(
+                    f"kv:{name}", arena.allocator.n_pages, first=1)
+
+        # Hamun policy half: act on the wear the planes record.
+        # wear_aware > 0 (True coerces to 1.0) blends the install victim
+        # picker's delta cost with per-slot write pressure and switches
+        # page allocation to coldest-page-first; 0 keeps FIFO + pure
+        # min-delta placement bit for bit.  fault_rate > 0 arms seeded
+        # stuck-at faults over both planes: a write that fails verify
+        # retires its slot or page for good and the engine remaps —
+        # faulted runs stay token-equivalent to fault-free ones.
+        self._wear_weight = float(wear_aware)
+        if self._wear_weight < 0:
+            raise ValueError("wear_aware must be >= 0 (a blend weight)")
+        if self._wear_weight > 0:
+            self.residency.wear_weight = self._wear_weight
+            for arena in self._paged_arenas():
+                arena.allocator.enable_wear_aware(arena.wear)
+        self.faults: Optional[FaultModel] = (
+            FaultModel(fault_rate, fault_seed) if fault_rate else None)
+        if self.faults is not None:
+            self.residency.faults = self.faults
+            for name, arena in self.arenas.items():
+                if isinstance(arena, PagedKVArena):
+                    arena.allocator.faults = self.faults
+                    arena.allocator.fault_plane = f"kv:{name}"
         self.requests: Dict[int, Request] = {}
         self._clock = clock
         self._next_rid = 0
@@ -431,6 +516,8 @@ class ServingEngine:
         self.tracer.request_phase(req.rid, "finished",
                                   n_generated=len(req.generated))
         self.metrics.record_finish(req)
+        if self.telemetry is not None:
+            self.telemetry.on_finish(req)
 
     # ------------------------------------------------- chunked prefill
     def _admit_staged(self, allowed) -> int:
@@ -669,7 +756,19 @@ class ServingEngine:
         rows or admissible queued requests), make their weights resident
         (instantly, or via the budgeted install pipeline), admit+prefill
         their queued requests, then decode one token for every running
-        row."""
+        row.
+
+        With `stall_timeout_s > 0` the step runs under the watchdog: a step
+        that overruns the deadline fires `_on_stall` (trace instant +
+        flight-recorder dump) while the step keeps running — the heartbeat
+        observes, it never kills work."""
+        if self.watchdog is None:
+            self._step_inner()
+            return
+        with self.watchdog.armed(self._step_no):
+            self._step_inner()
+
+    def _step_inner(self) -> None:
         now = self._clock()
         with self.tracer.span("schedule"):
             demand = [name for name in self.models
@@ -768,11 +867,17 @@ class ServingEngine:
         if self.tracer.enabled:
             self.tracer.counter("kv_used_pages", kv_used)
             self.tracer.counter("queue_depth", self.scheduler.queue_depth)
+            # wear telemetry tracks: cumulative flips and the current wear
+            # spread, beside pool headroom and install backlog
+            self.tracer.counter("install_flips",
+                                self.residency.stats.cell_flips)
+            self.tracer.counter("wear_gini_weight",
+                                round(self.residency.wear.gini("flips"), 4))
             self.tracer.counter("kv_free_pages", kv_total - kv_used)
             self.tracer.counter("install_queue_depth",
                                 self.pipeline.queue_depth
                                 if self.pipeline is not None else 0)
-        self.metrics.record_step(StepRecord(
+        rec = StepRecord(
             t=now,
             n_active=sum(len(a.active_slots()) for a in self.arenas.values()),
             queue_depth=self.scheduler.queue_depth,
@@ -789,9 +894,91 @@ class ServingEngine:
             prefix_hit_tokens=hit_tokens,
             prefix_cached_pages=cached,
             sample_syncs=sample_syncs,
-            component_s=self.tracer.step_components()))
+            component_s=self.tracer.step_components())
+        self.metrics.record_step(rec)
+        if self.telemetry is not None or self.recorder is not None:
+            self._observe_step(rec, kv_total - kv_used)
         self._step_no += 1
         self._wall_s += self._clock() - now
+
+    def _observe_step(self, rec: StepRecord, free_pages: int) -> None:
+        """Feed the live-telemetry plane after a step: window updates,
+        SLO transitions, the flight ring, and the two recorder triggers
+        the engine itself detects (unit retirement, SLO breach)."""
+        transitions = (self.telemetry.on_step(self._step_no, rec,
+                                              free_pages)
+                       if self.telemetry is not None else [])
+        if self.recorder is None:
+            return
+        self.recorder.record_step(self._step_no, rec, self.health())
+        retired = self.residency.stats.slots_retired + sum(
+            a.allocator.pages_retired for a in self._paged_arenas())
+        if retired > self._retired_seen:
+            # a slot/page retirement happened this step: capture the steps
+            # that led up to it (Hamun-style incident forensics)
+            self._retired_seen = retired
+            self.recorder.trigger("unit_retired", step=self._step_no,
+                                  retired_total=retired)
+        for kind, target, burn_s, burn_l in transitions:
+            if kind == "slo_breach":
+                self.recorder.trigger("slo_breach", step=self._step_no,
+                                      target=target, burn_short=burn_s,
+                                      burn_long=burn_l)
+
+    def _on_stall(self, step: int) -> None:
+        """Watchdog deadline missed: the step loop has been inside step
+        `step` for more than `stall_timeout_s`.  Observation only — the
+        step keeps running; the suspicion is flagged and the ring
+        snapshotted, so a genuinely hung replica leaves forensics
+        behind."""
+        if self.tracer.enabled:
+            self.tracer.instant("stall_suspected", step=step,
+                                timeout_s=self._stall_timeout_s)
+        if self.recorder is not None:
+            self.recorder.trigger("stall_suspected", step=step,
+                                  timeout_s=self._stall_timeout_s)
+
+    def health(self) -> Dict[str, Any]:
+        """Cheap live-health snapshot — the router-tier placement probe.
+
+        Pure observation over already-tracked state (no device sync, no
+        list walks over history), deterministic under `VirtualClock`: two
+        identical runs give byte-identical `health()` JSON.  The
+        `slo`/`windows` sections appear only when telemetry is on; the
+        resource half is always there."""
+        paged = self._paged_arenas()
+        res = self.residency
+        slots_free = sum(1 for i, s in enumerate(res.slots)
+                         if s is None and i not in res.retired)
+        now = self._clock()
+        hit = self.metrics.prefix_hit_tokens
+        covered = hit + self.metrics.prefill_tokens
+        doc: Dict[str, Any] = {
+            "t": now,
+            "step": self._step_no,
+            "queue_depth": self.scheduler.queue_depth,
+            "queue_wait_s": self.scheduler.queue_wait(now),
+            "n_active": sum(len(a.active_slots())
+                            for a in self.arenas.values()),
+            "kv_free_pages": sum(a.allocator.n_free for a in paged),
+            "kv_total_pages": sum(a.allocator.n_pages for a in paged),
+            "weight_slots_free": slots_free,
+            "weight_slots_total": res.arena_slots,
+            "slots_retired": res.stats.slots_retired,
+            "pages_retired": sum(a.allocator.pages_retired for a in paged),
+            "prefix_cached_pages": sum(a.allocator.tree.n_cached
+                                       for a in paged),
+            "prefix_hit_rate": hit / max(covered, 1),
+            "install_backlog": (self.pipeline.queue_depth
+                                if self.pipeline is not None else 0),
+            "ok": True,
+        }
+        if self.telemetry is not None and self.telemetry.slo is not None:
+            doc["ok"] = not self.telemetry.slo.any_breached
+            doc["slo"] = self.telemetry.slo.status()
+        if self.telemetry is not None:
+            doc["windows"] = self.telemetry.snapshot_scope("_global")
+        return doc
 
     # -------------------------------------------------------------- run
     def has_work(self) -> bool:
@@ -829,7 +1016,32 @@ class ServingEngine:
             residency=self.residency.stats.as_dict(),
             rejected=self.scheduler.rejected,
             paging=self._paging_stats(),
-            prefill_cache=prefill_cache_info() if self._chunk > 0 else None)
+            prefill_cache=prefill_cache_info() if self._chunk > 0 else None,
+            wear=self._wear_stats())
+
+    def _wear_stats(self) -> Dict[str, float]:
+        """Write energy and wear spread: install pulses and KV page bytes
+        priced through the energy model, Gini coefficients per plane
+        family.  `wear_gini_kv` only appears once a paged tenant exists —
+        a slot-arena engine has no KV write plane to speak of."""
+        em = self.energy_model
+        paged = self._paged_arenas()
+        out = {
+            "install_energy_j": em.weight_write_j(
+                self.residency.stats.write_pulses),
+            "kv_write_energy_j": em.kv_write_j(
+                sum(a.kv_bytes_written for a in paged)),
+            "wear_gini_weight": self.residency.wear.gini("flips"),
+        }
+        if paged:
+            out["wear_gini_kv"] = self.wear.gini(prefix="kv:")
+        # fault-degradation counters: units retired after a stuck-at fault
+        # was survived (slots_retired rides in on the residency stats)
+        pages_retired = sum(a.allocator.pages_retired for a in paged)
+        out["pages_retired"] = float(pages_retired)
+        out["faults_survived"] = float(
+            self.residency.stats.slots_retired + pages_retired)
+        return out
 
     def _paging_stats(self) -> Optional[Dict[str, float]]:
         """Paged-arena stats summed over tenants (None when every tenant is

@@ -429,12 +429,7 @@ def format_summary(s: Dict[str, float]) -> str:
             f"hidden under decode ({hidden/work:.0%}); "
             f"worst inter-token gap p50/p95 "
             f"{s['itl_max_p50_s']*1e3:.1f}/{s['itl_max_p95_s']*1e3:.1f} ms")
-    if "install_energy_j" not in s and s.get("install_write_pulses", 0):
-        # no wear/energy model in the summary: the write counts alone
-        lines.append(
-            f"install writes: {int(s['install_cell_flips'])} cell flips, "
-            f"{int(s['install_write_pulses'])} pulses")
-    elif s.get("install_write_pulses", 0) or s.get("kv_page_writes", 0):
+    if s.get("install_write_pulses", 0) or s.get("kv_page_writes", 0):
         line = (
             f"wear: installs {s.get('install_energy_j', 0.0)*1e3:.2f} mJ "
             f"({int(s.get('install_cell_flips', 0))} cell flips, "

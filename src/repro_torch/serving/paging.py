@@ -2,12 +2,13 @@
 block page tables, prefix sharing, and COW.
 
   * `PageAllocator` — the host-side occupancy map over fixed-size KV pages
-    (copied from the reference without its wear and fault hooks):
-    free-list allocation, per-request page tables, refcounted prefix
-    sharing through the radix tree, and copy-on-write when a shared page
-    is about to diverge.  A freed page keeps its stale device contents
-    until the next occupant overwrites them — correctness comes from
-    position masks.
+    (copied from the reference): free-list allocation (FIFO, or
+    coldest-first by the pool's wear plane), per-request page tables,
+    refcounted prefix sharing through the radix tree, copy-on-write when a
+    shared page is about to diverge, and program-and-verify against an
+    injected stuck-at fault model that retires a faulted page for good.
+    A freed page keeps its stale device contents until the next occupant
+    overwrites them — correctness comes from position masks.
   * `PagedKVArena` — the device side: one page-pool cache tree per tenant
     (the prefill cache layout with the batch axis reinterpreted as the
     page axis) plus per-row decode state.  Requests address their KV
@@ -15,7 +16,9 @@ block page tables, prefix sharing, and COW.
     decode path in `nn/attention.py`.  A chunked prefill stages its row
     (`stage`), reserves pages chunk by chunk (`grow`), seeds its staging
     cache from shared prefix pages (`load_prefix`, `page_read`) and
-    installs the rest at its last chunk (`finish_stage`).
+    installs the rest at its last chunk (`finish_stage`).  Every page it
+    programs (install, staged install, COW copy) is counted, in bytes and
+    in the injected wear plane, with the shared pages an install skipped.
 
 Device page 0 is reserved as a scratch page: inactive decode rows keep
 all-zero page tables, so their (discarded) decode writes land in the
@@ -27,6 +30,7 @@ donates them to a jitted function instead.
 """
 from __future__ import annotations
 
+import heapq
 from collections import deque
 from typing import Any, Dict, FrozenSet, List, Optional, Tuple
 
@@ -51,6 +55,13 @@ class PageAllocator:
     # structured-event sink for eviction/COW/donation decisions; the
     # engine swaps in its shared Tracer, standalone use keeps the no-op
     tracer = NULL_TRACER
+    # stuck-at fault model (serving/faults.py) + the wear-plane name its
+    # checks key on, injected by the engine; None = fault-free allocation
+    faults = None
+    fault_plane = "kv"
+    # wear-plane over this pool's page ids, shared with the owning arena;
+    # enable_wear_aware() switches the free structure to coldest-first
+    wear = None
 
     def __init__(self, n_pages: int, page_size: int, *,
                  retain: bool = False, max_cached: Optional[int] = None):
@@ -59,7 +70,16 @@ class PageAllocator:
         self.n_pages = n_pages
         self.page_size = page_size
         self.retain = retain
-        self._free = deque(range(1, n_pages + 1))   # FIFO free list
+        # FIFO free deque by default; enable_wear_aware() rebuilds it as a
+        # (writes, page) min-heap so allocation hands out the coldest page
+        # first — valid because pages only accrue writes while allocated,
+        # so a free page's wear never changes under it
+        self._free = deque(range(1, n_pages + 1))
+        self.wear_aware = False
+        # pages permanently pulled from service after a stuck-at fault —
+        # never re-issued (neither free nor referenced)
+        self.retired: set = set()
+        self.pages_retired = 0
         self.refcount = np.zeros(n_pages + 1, np.int32)
         self.tables: Dict[int, List[int]] = {}      # rid -> physical pages
         # prefix index + retention layer: radix tree over token-block
@@ -90,12 +110,54 @@ class PageAllocator:
         return max(-(-n_tokens // self.page_size), 1)
 
     # ---------------------------------------------------------- low level
-    def _take_page(self) -> int:
-        """Pop a free page (callers made sure one is free)."""
-        page = self._free.popleft()
-        self.refcount[page] = 1
-        self.pages_allocated += 1
-        return page
+    def enable_wear_aware(self, plane) -> None:
+        """Switch free-page ordering from FIFO to coldest-first, steered by
+        `plane` (the pool's WearPlane): the free structure becomes a
+        (writes, page) min-heap, so every allocation programs the least-
+        worn free page.  Ties break toward the lower page id, keeping the
+        order deterministic."""
+        self.wear = plane
+        self.wear_aware = True
+        heap = [(int(plane.writes[p - plane.first]), p) for p in self._free]
+        heapq.heapify(heap)
+        self._free = heap
+
+    def _free_push(self, page: int) -> None:
+        if self.wear_aware:
+            heapq.heappush(
+                self._free,
+                (int(self.wear.writes[page - self.wear.first]), page))
+        else:
+            self._free.append(page)
+
+    def _free_pop(self) -> int:
+        if self.wear_aware:
+            return heapq.heappop(self._free)[1]
+        return self._free.popleft()
+
+    def _take_page(self) -> Optional[int]:
+        """Pop free pages until one takes the program cleanly
+        (program-and-verify): a page that faults is retired for good (never
+        re-issued), the free list is topped back up through LRU eviction
+        when retirement drains it, and None means no healthy page is left —
+        the caller unwinds with no side effects and degrades like any other
+        pool exhaustion (preempt, resume when pages free up)."""
+        while True:
+            if not self._free and not self.ensure_free(1):
+                return None
+            page = self._free_pop()
+            if (self.faults is not None
+                    and self.faults.check(self.fault_plane, page)):
+                self.retired.add(page)
+                self.pages_retired += 1
+                if self.wear is not None:
+                    self.wear.retire(page)
+                self.tracer.instant("page_retired", page=page,
+                                    plane=self.fault_plane)
+                continue
+            self.refcount[page] = 1
+            self.pages_allocated += 1
+            return page
 
     def free_page(self, page: int) -> None:
         """Drop one reference; the page returns to the free list (contents
@@ -108,7 +170,7 @@ class PageAllocator:
         self.refcount[page] -= 1
         if self.refcount[page] == 0:
             self.tree.drop_page(page, self.free_page)
-            self._free.append(page)
+            self._free_push(page)
         elif self.refcount[page] == 1:
             # last external holder left a retained page: it just became
             # solely tree-held, i.e. evictable — tell the tree's count
@@ -189,7 +251,18 @@ class PageAllocator:
             self.shared_hits -= len(shared)
             return None
         self.ensure_free(need)
-        table = list(shared) + [self._take_page() for _ in range(need)]
+        fresh: List[int] = []
+        for _ in range(need):
+            page = self._take_page()
+            if page is None:         # faults drained the pool mid-build
+                for p in fresh:
+                    self.free_page(p)
+                for p in shared:
+                    self.free_page(p)
+                self.shared_hits -= len(shared)
+                return None
+            fresh.append(page)
+        table = list(shared) + fresh
         self.tables[rid] = table
         return table, len(shared)
 
@@ -219,7 +292,15 @@ class PageAllocator:
         if need > self.n_free + self.evictable_pages():
             return False
         self.ensure_free(need)
-        self.tables[rid].extend(self._take_page() for _ in range(need))
+        added: List[int] = []
+        for _ in range(need):
+            page = self._take_page()
+            if page is None:         # faults drained the pool mid-growth
+                for p in added:
+                    self.free_page(p)
+                return False
+            added.append(page)
+        self.tables[rid].extend(added)
         return True
 
     def extend(self, rid: int) -> Optional[int]:
@@ -229,6 +310,8 @@ class PageAllocator:
         if not self.ensure_free(1):
             return None
         page = self._take_page()
+        if page is None:
+            return None
         self.tables[rid].append(page)
         return page
 
@@ -243,6 +326,8 @@ class PageAllocator:
         if not self.ensure_free(1):
             return None
         new = self._take_page()
+        if new is None:
+            return None
         self.free_page(old)          # our ref only; other holders keep it
         self.tables[rid][block] = new
         self.cow_copies += 1
@@ -359,6 +444,10 @@ class PagedKVArena:
     # structured-event sink (shared with self.allocator); the engine
     # swaps in its Tracer, standalone use keeps the no-op
     tracer = NULL_TRACER
+    # wear-telemetry sink, injected like the tracer: the engine's
+    # WearPlane over this pool's page ids (1..n_pages; the scratch page 0
+    # never takes an accounted write).  Standalone use records nothing.
+    wear = None
 
     def __init__(self, cfg: ModelConfig, n_rows: int, n_pages: int,
                  page_size: int, *, prefix_cache: bool = False,
@@ -384,6 +473,19 @@ class PagedKVArena:
             else None)
         self.caches = init_page_pool(cfg, n_pages + 1, page_size,
                                      device=self.device)
+        # Device bytes one logical page write programs: a page write copies
+        # this page's slice of EVERY pool leaf (all layers — see
+        # page_write), so per-page bytes = per-leaf page-axis slice summed
+        # across leaves.  Feeds the KV write-energy conversion.
+        self.page_bytes = sum(
+            leaf.numel() * leaf.element_size() // (n_pages + 1)
+            for seg in self.caches for leaf in seg["attn"].values())
+        # write-side accounting: physical page programs (prefill scatter,
+        # staged install, COW copies) and the programs retained-page /
+        # live-prefix sharing avoided (shared pages an install skipped)
+        self.kv_page_writes = 0
+        self.kv_bytes_written = 0
+        self.kv_page_writes_avoided = 0
         self.owner: List[Optional[int]] = [None] * n_rows
         self.pos = np.zeros(n_rows, np.int32)
         self.last_token = np.zeros(n_rows, np.int32)
@@ -470,6 +572,14 @@ class PagedKVArena:
         return rid
 
     # ------------------------------------------------------------ caches
+    def _note_page_write(self, page: int) -> None:
+        """One physical page programmed (prefill scatter, staged install,
+        or COW copy) — the KV-plane analogue of a weight install."""
+        self.kv_page_writes += 1
+        self.kv_bytes_written += self.page_bytes
+        if self.wear is not None:
+            self.wear.record(page)
+
     def install(self, row: int, one_caches: Any, first_token: int,
                 tokens: Tuple[int, ...]) -> None:
         """Scatter a freshly prefilled batch-1 cache into this row's
@@ -477,8 +587,10 @@ class PagedKVArena:
         publish the pages for future sharing, and arm decode state."""
         rid = self.owner[row]
         table = self.allocator.tables[rid]
+        self.kv_page_writes_avoided += self._n_shared[rid]
         for i in range(self._n_shared[rid], len(table)):
             page_write(self.cfg, self.caches, one_caches, i, table[i])
+            self._note_page_write(table[i])
         self.allocator.register(rid, tuple(tokens))
         self.pos[row] = len(tokens)
         self.last_token[row] = first_token
@@ -539,8 +651,10 @@ class PagedKVArena:
         if len(table) != self.blocks_for(len(tokens)):
             raise ValueError("finish_stage before the table covered the "
                              "prompt")
+        self.kv_page_writes_avoided += self._n_shared[rid]
         for i in range(self._n_shared[rid], len(table)):
             page_write(self.cfg, self.caches, staging, i, table[i])
+            self._note_page_write(table[i])
         self.allocator.register(rid, tuple(tokens))
         self.tables_np[row, :] = 0
         self.tables_np[row, :len(table)] = table
@@ -569,6 +683,7 @@ class PagedKVArena:
         if src != dst:
             page_copy(self.cfg, self.caches, src, dst)
             self.tables_np[row, block] = dst
+            self._note_page_write(dst)
         return True
 
     def decode_inputs(self):
@@ -594,4 +709,8 @@ class PagedKVArena:
             "kv_cow_copies": float(a.cow_copies),
             "kv_prefix_cached_pages": float(a.tree.n_cached),
             "kv_prefix_evictions": float(a.tree.evictions),
+            "kv_page_writes": float(self.kv_page_writes),
+            "kv_bytes_written": float(self.kv_bytes_written),
+            "kv_page_writes_avoided": float(self.kv_page_writes_avoided),
+            "kv_pages_retired": float(a.pages_retired),
         }

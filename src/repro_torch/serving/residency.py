@@ -94,15 +94,16 @@ class WeightResidencyManager:
     # wear telemetry sinks, injected like the tracer: `wear` is the weight
     # arena's WearPlane (per-slot writes/flips/pulses, keyed by layer
     # group), `flip_hist` a MetricsRegistry histogram of per-install flips;
-    # the port has no wear plane yet, so both stay None
+    # the engine injects both, standalone use records nothing
     wear = None
     flip_hist = None
-    # wear-aware victim blending: weight > 0 adds a per-prior-write penalty
-    # to each victim slot's delta cost (needs `wear`); 0 keeps the pure
-    # greedy min-delta picker
+    # wear-aware victim blending (Hamun policy half): weight > 0 adds a
+    # per-prior-write penalty to each victim slot's delta cost so installs
+    # rotate toward cold slots; 0 keeps the pure greedy min-delta picker
+    # bit for bit.  The engine sets it from its `wear_aware` knob.
     wear_weight = 0.0
-    # stuck-at fault model, injected like the tracer; None = fault-free,
-    # every check site skipped
+    # stuck-at fault model (serving/faults.py), injected like the tracer;
+    # None = fault-free, every check site skipped
     faults = None
 
     def __init__(self, models: Dict[str, Tuple[Any, ModelConfig]],

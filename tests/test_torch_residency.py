@@ -284,13 +284,13 @@ def test_two_tenant_engine_matches_reference(engine_runs, arm):
                  "install_cell_flips", "install_write_pulses",
                  "slots_retired")
     assert set(residency) <= set(g_sum)
-    # every summary metric both engines report (the reference adds wear,
-    # energy and fault keys the port does not model yet), latencies
-    # included: they come from the same VirtualClock schedule
-    shared = set(g_sum) & set(w_sum)
+    # every summary metric, the wear, energy and fault keys and the
+    # latencies included: they come from the same VirtualClock schedule
     assert set(residency) | {"install_stall_steps", "install_work_bytes",
-                             "overlap_hidden_bytes", "ttft_p95_s"} <= shared
-    assert {k: g_sum[k] for k in shared} == {k: w_sum[k] for k in shared}
+                             "overlap_hidden_bytes", "ttft_p95_s",
+                             "install_energy_j", "wear_gini_weight",
+                             "faults_survived"} <= set(g_sum)
+    assert g_sum == w_sum
     assert g_sum["requests_finished"] == 12
     assert g_sum["cross_tenant_installs"] > 0
 

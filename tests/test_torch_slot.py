@@ -11,9 +11,12 @@ reference on the CPU at gemma-7b smoke (all equalities bit for bit):
     through the masked einsum;
   * `cached_stage_install` (ring, slice, int8 quantize) equals the
     reference's on the same staging;
-  * the launcher: the new flags' defaults, the no-flag greedy loop, the
-    `--prefix-cache` refusal, and the `--engine --virtual-clock` run's
-    Chrome trace and metrics document against the reference CLI's.
+  * the launcher: every engine flag's default, the no-flag greedy loop,
+    the `--prefix-cache` refusal, and the `--engine --virtual-clock` run's
+    Chrome trace and metrics document against the reference CLI's — and,
+    with wear-aware placement, faults, telemetry and the flight recorder
+    on, its wear map, events, Prometheus text, flight dumps and health
+    line.
 
 The slot engine's schedules are in `tests/test_torch_slot_engine.py`.
 """
@@ -274,10 +277,16 @@ def _ref_args(argv):
 
 
 def test_engine_cli_new_flag_defaults_match_the_reference():
+    """The port's parser has every flag of the reference's but
+    `--kernel-backend` (the port launches its CUDA kernels on a CUDA
+    tensor, so there is no backend to pick), with the reference's
+    defaults, plus `--device`."""
     want = vars(_ref_args(["--engine"]))
     got = vars(serve._parser().parse_args(["--engine"]))
-    for flag in NEW_FLAGS:
+    assert set(got) - {"device"} == set(want) - {"kernel_backend"}
+    for flag in set(got) - {"device"}:
         assert got[flag] == want[flag], flag
+    assert set(NEW_FLAGS) < set(got)
     assert got["kv_layout"] == "slot"
 
 
@@ -321,43 +330,52 @@ def test_default_mode_greedy_loop_matches_the_reference(capsys,
     np.testing.assert_array_equal(toks, np.stack(want, 1))
 
 
-# the reference's trace and summary carry the wear plane, which the port
-# does not have yet (ROADMAP queue 1 item 2): its per-step counter tracks
-# and summary keys, and the registry's install-flip histogram
-WEAR_COUNTERS = {"install_flips", "wear_gini_weight"}
-WEAR_SUMMARY = {"install_energy_j", "kv_write_energy_j", "wear_gini_weight",
-                "pages_retired", "faults_survived", "wear_gini_kv",
-                "kv_bytes_written", "kv_page_writes",
-                "kv_page_writes_avoided", "kv_pages_retired"}
-WEAR_REGISTRY = "install_cell_flips"
 # the step caches' hit/miss/trace counters count every shape the process
 # has run (`launch.steps.prefill_cache_info`, process-wide in both
 # packages), so they depend on the tests that ran before, not on this run
 TRACE_COUNTERS = "prefill_cache_"
+# the wear map, events, Prometheus text and flight dumps a CLI run writes
+# with the planes on (`--flight-dir` is the package's own directory)
+ARTIFACTS = {"--wear-json": "wear.json", "--events-out": "events.jsonl",
+             "--prom-out": "prom.txt"}
 
 
-def _cli_run(pkg, tmp_path, monkeypatch, extra):
+def _cli_run(pkg, tmp_path, monkeypatch, extra, planes=()):
     """One `--engine --smoke --virtual-clock --trace-out --metrics-json`
-    run of either CLI; the once-only flush's atexit and SIGTERM hooks are
-    recorded, not installed."""
+    run of either CLI, its files written into `tmp_path / pkg`; `planes`
+    are further flags whose artifacts (`ARTIFACTS`, flight dumps) land
+    there too.  The once-only flush's atexit and SIGTERM hooks, and the
+    flight recorder's SIGUSR1 handler, are recorded, not installed; its
+    excepthook is undone.  Returns (trace, metrics document, {artifact
+    name: bytes})."""
     import atexit
     import signal
     hooks = []
     monkeypatch.setattr(atexit, "register", lambda fn: hooks.append(fn))
     monkeypatch.setattr(signal, "signal", lambda *a: hooks.append(a[0]))
-    trace, metrics = tmp_path / f"{pkg}.trace", tmp_path / f"{pkg}.json"
+    monkeypatch.setattr(sys, "excepthook", sys.excepthook)
+    out = tmp_path / pkg
+    out.mkdir()
     argv = ["--engine", "--smoke", "--virtual-clock", "--requests", "6",
             "--prompt-len", "10", "--gen", "5", "--turn-steps", "2",
-            "--trace-out", str(trace), "--metrics-json", str(metrics),
-            *extra]
+            "--trace-out", str(out / "trace.json"), "--metrics-json",
+            str(out / "metrics.json"), *extra]
+    if planes:
+        argv += [*planes, "--flight-dir", str(out)]
+        argv += [a for flag, name in ARTIFACTS.items()
+                 for a in (flag, str(out / name))]
     if pkg == "ref":
         ref_serve._run_engine(_ref_args(argv))
     else:
         serve._run_engine(serve._parser().parse_args([*argv, "--device",
                                                       "cpu"]),
                           params=_params(0)[2])
-    assert len(hooks) == 2 and hooks[1] == signal.SIGTERM
-    return json.loads(trace.read_text()), json.loads(metrics.read_text())
+    want_hooks = [signal.SIGUSR1] if planes else []
+    assert [h for h in hooks if not callable(h)] == \
+        [*want_hooks, signal.SIGTERM]
+    files = {f.name: f.read_bytes() for f in sorted(out.iterdir())}
+    return (json.loads(files.pop("trace.json")),
+            json.loads(files.pop("metrics.json")), files)
 
 
 @pytest.mark.parametrize("extra", [
@@ -369,26 +387,68 @@ def test_engine_cli_trace_and_metrics_match_the_reference(
         extra, tmp_path, monkeypatch, capsys):
     """The CLI's engine set-up on the reference's weights (tenant-a
     PRNGKey(0), tenant-b its perturbed variant), on a VirtualClock with a
-    Tracer: the Chrome trace's events and the metrics document equal the
-    reference CLI's, but for the wear plane's fields (`WEAR_*` above),
-    which the port has not ported yet, and the process-wide step-cache
-    counters (`TRACE_COUNTERS`)."""
-    ref_trace, ref_doc = _cli_run("ref", tmp_path, monkeypatch, extra)
-    trace, doc = _cli_run("port", tmp_path, monkeypatch, extra)
+    Tracer: the Chrome trace's events (the wear plane's counter tracks
+    included) and the metrics document (its wear, energy and fault keys
+    and the install-flip histogram included) equal the reference CLI's,
+    but for the process-wide step-cache counters (`TRACE_COUNTERS`)."""
+    ref_trace, ref_doc, _ = _cli_run("ref", tmp_path, monkeypatch, extra)
+    trace, doc, _ = _cli_run("port", tmp_path, monkeypatch, extra)
     out = capsys.readouterr().out
     assert "6 requests across 2 models" in out and "finished 6" in out
-    ref_events = [e for e in ref_trace["traceEvents"]
-                  if not (e["ph"] == "C" and e["name"] in WEAR_COUNTERS)]
-    assert len(ref_events) < len(ref_trace["traceEvents"])
-    assert trace["traceEvents"] == ref_events
-    assert {k: v for k, v in trace.items() if k != "traceEvents"} == \
-        {k: v for k, v in ref_trace.items() if k != "traceEvents"}
-    want = {k: v for k, v in ref_doc["summary"].items()
-            if k not in WEAR_SUMMARY and not k.startswith(TRACE_COUNTERS)}
-    assert {k: v for k, v in doc["summary"].items()
-            if not k.startswith(TRACE_COUNTERS)} == want
+    _assert_same_trace_and_metrics(trace, doc, ref_trace, ref_doc)
     assert any(k.startswith(TRACE_COUNTERS) for k in doc["summary"]) == \
         ("--prefill-chunk" in extra)
-    assert any(k.startswith(WEAR_REGISTRY) for k in ref_doc["metrics"])
-    assert doc["metrics"] == {k: v for k, v in ref_doc["metrics"].items()
-                              if not k.startswith(WEAR_REGISTRY)}
+
+
+def _assert_same_trace_and_metrics(trace, doc, ref_trace, ref_doc):
+    assert {e["name"] for e in trace["traceEvents"] if e["ph"] == "C"} >= \
+        {"install_flips", "wear_gini_weight"}
+    assert trace == ref_trace
+    assert {k: v for k, v in doc["summary"].items()
+            if not k.startswith(TRACE_COUNTERS)} == \
+        {k: v for k, v in ref_doc["summary"].items()
+         if not k.startswith(TRACE_COUNTERS)}
+    assert {"install_energy_j", "wear_gini_weight", "faults_survived"} <= \
+        set(doc["summary"])
+    assert any(k.startswith("install_cell_flips") for k in doc["metrics"])
+    assert doc["metrics"] == ref_doc["metrics"]
+
+
+# seed 9 at rate 0.05 retires one of the three weight slots (the arena
+# survives one retirement: a tenant needs two) and two KV pages
+PLANES = ["--kv-layout", "paged", "--page-size", "4", "--wear-aware",
+          "--fault-rate", "0.05", "--fault-seed", "9",
+          "--flight-recorder-steps", "16", "--slo-itl-p95", "0.001"]
+
+
+def test_engine_cli_wear_faults_and_telemetry_match_the_reference(
+        tmp_path, monkeypatch, capsys):
+    """`--wear-aware --fault-rate --fault-seed --wear-json --events-out
+    --prom-out --flight-recorder-steps --slo-itl-p95` on the paged layout
+    under `--virtual-clock`: the trace, the metrics document and every
+    artifact (wear map, events, Prometheus text, each flight dump) equal
+    the reference CLI's byte for byte, and so do the summary's wear and
+    fault lines and the printed health snapshot."""
+    ref_trace, ref_doc, ref_files = _cli_run("ref", tmp_path, monkeypatch,
+                                             [], PLANES)
+    ref_out = capsys.readouterr().out
+    trace, doc, files = _cli_run("port", tmp_path, monkeypatch, [], PLANES)
+    out = capsys.readouterr().out
+    _assert_same_trace_and_metrics(trace, doc, ref_trace, ref_doc)
+    assert doc["summary"]["slots_retired"] == 1.0
+    assert doc["summary"]["pages_retired"] == 2.0
+    dumps = [n for n in files if n.startswith("flight-")]
+    assert "flight-000-unit_retired.json" in dumps
+    assert any(n.endswith("slo_breach.json") for n in dumps)
+    assert set(files) == set(ARTIFACTS.values()) | set(dumps)
+    assert files == ref_files
+    from repro_torch.serving import (validate_events_jsonl,
+                                     validate_prometheus_text)
+    assert validate_events_jsonl(files["events.jsonl"].decode()) == []
+    assert validate_prometheus_text(files["prom.txt"].decode()) == []
+
+    def lines(text, *heads):
+        return [ln for ln in text.splitlines() if ln.startswith(heads)]
+    heads = ("wear:", "faults:", "health:", "tenant ")
+    assert len(lines(out, *heads)) == 5
+    assert lines(out, *heads) == lines(ref_out, *heads)
