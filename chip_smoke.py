@@ -86,7 +86,24 @@ Phases (any failure exits non-zero before the last line):
      and one of B's decode calls over retired-page tables is held against
      the plain version; then (C) wear-aware placement alone, for the
      blend's share of the weight Gini;
- 10. print the `kernels` JSON line, then the result line.
+ 10. the other families at full width: deepseek-v2-lite-16b (MLA + MoE,
+     all 27 layers, weights drawn on the card) serves phase 3's requests
+     through the engine three times, slot (the default), paged (page 16)
+     and paged with chunks of 256 under a 512-token budget: every request
+     finishes inside the vocab, 27 flash launches a monolithic prefill, 0
+     chunked, 0 paged launches (MLA decodes with no kernel), the paged
+     run's first tokens equal the slot run's, and a chunked first token
+     that parts from them a near-tie the two routes' logits explain; the
+     longest prompt's prefill logits against the plain versions within
+     LOGIT_TOL with the MoE routing pinned to the kernel run's experts
+     (printed unpinned too: routing is discontinuous); a decode step
+     profiled, with the weight reads as written and as the step's
+     routing hit them, and the MoE layers' share of its device time.
+     Then the default mode (phase 8's, every step against the plain
+     versions, the routing pinned on the MoE model) on minicpm-2b at
+     full depth and qwen3-32b, yi-34b and qwen3-moe-235b-a22b at full
+     width and 8, 8 and 2 layers, each freed before the next;
+ 11. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -135,9 +152,10 @@ REPEATS = 20                   # runs of a pipelined kernel held bit-identical
 DELTA_ROUNDS = 3               # in-turn rounds of delta_apply and torch.add
 L2_FLUSH_BYTES = 256 << 20     # read between cold timed calls: 5x the L2
 # paged decode, timed: gemma-7b's heads over a 1,024-token table
-# (PAGED_MAIN), a GQA shape, qwen3-32b's and qwen3-moe-235b-a22b's
-# full-width decode heads, rows long enough that the split is what feeds
-# the SMs, and the serve run's table (34 pages, rows at 40-543 tokens)
+# (PAGED_MAIN), a GQA shape, qwen3-32b's, qwen3-moe-235b-a22b's, yi-34b's
+# and minicpm-2b's full-width decode heads, rows long enough that the
+# split is what feeds the SMs, and the serve run's table (34 pages, rows
+# at 40-543 tokens)
 PAGED_MAIN = "B8 Hkv16 G1 D256 page16 T64"
 PAGED_TIMED = {
     PAGED_MAIN: dict(B=8, H=16, Hkv=16, D=256, page=16, T=64, seed=1),
@@ -147,6 +165,10 @@ PAGED_TIMED = {
         B=8, H=64, Hkv=8, D=128, page=16, T=64, seed=6),
     "qwen3-moe-235b B8 H64 Hkv4 G16 D128 page16 T64": dict(
         B=8, H=64, Hkv=4, D=128, page=16, T=64, seed=7),
+    "yi-34b B8 H56 Hkv8 G7 D128 page16 T64": dict(
+        B=8, H=56, Hkv=8, D=128, page=16, T=64, seed=13),
+    "minicpm-2b B8 H36 Hkv36 G1 D64 page16 T64": dict(
+        B=8, H=36, Hkv=36, D=64, page=16, T=64, seed=14),
     "long rows B2 Hkv16 G1 D256 page16 T512 (8,192 tokens each)": dict(
         B=2, H=16, Hkv=16, D=256, page=16, T=512, seed=8,
         pos_list=[8191, 8191]),
@@ -1635,9 +1657,12 @@ def greedy_vs_plain(torch, cfg, params, toks):
     kernels, and with both wrappers swapped for their plain versions, each
     on its own caches.  Every step's logits within LOGIT_TOL of the logit
     scale; so the page view of the default mode's cache (p 16, T 34, one
-    position for every row) is held at each of the loop's positions.
-    Returns (max abs err, logit scale, greedy agreement, tokens of the
-    kernels' rerun equal to the loop's)."""
+    position for every row) is held at each of the loop's positions.  On
+    a MoE model the plain run is pinned to the kernel run's experts
+    (`pinned_route`).  Returns (max abs err, logit scale, greedy
+    agreement, tokens of the kernels' rerun equal to the loop's, and for
+    a MoE model (the unpinned error, the share of expert sets that
+    differ), else None)."""
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.launch.steps import cached_prefill_step, cached_serve_step
     B, S, gen = GREEDY["batch"], GREEDY["prompt_len"], GREEDY["gen"]
@@ -1654,17 +1679,27 @@ def greedy_vs_plain(torch, cfg, params, toks):
             out.append(logits.float())
         return torch.stack(out, 1)
 
-    k32 = run()
-    with plain_attention():
+    k_picks, p_picks = [], []
+    with recording_route(k_picks):
+        k32 = run()
+    with plain_attention(), recording_route(p_picks):
         p32 = run()
     if not (torch.isfinite(k32).all()
             and k32.shape == (B, gen, cfg.vocab_padded)):
         raise AssertionError("default mode logits not finite / wrong shape")
-    err = (k32 - p32).abs().max().item()
+    free_err = (k32 - p32).abs().max().item()
     scale = p32.abs().max().item()
     agree = (k32.argmax(-1) == p32.argmax(-1)).float().mean().item()
     same = int((k32.argmax(-1) == fed.long()).sum())
-    return err, scale, agree, same
+    if not k_picks:                         # a dense model: nothing routes
+        return free_err, scale, agree, same, None
+    # MoE routing is discontinuous: the plain run again, pinned to the
+    # kernel run's experts, leaves the attention's difference alone
+    with plain_attention(), pinned_route(k_picks, {"calls": 0,
+                                                   "offset": 0}):
+        q32 = run()
+    return ((k32 - q32).abs().max().item(), scale, agree, same,
+            (free_err, routing_flips(k_picks, p_picks)))
 
 
 def default_mode(torch, cfg, params):
@@ -1672,14 +1707,17 @@ def default_mode(torch, cfg, params):
     its CLI calls) on `params`: one B x S prefill, gen - 1 greedy decode
     steps at a scalar position, launch counts set to 0 just before and
     read just after; then every step's logits held against the plain
-    versions (`greedy_vs_plain`).  Returns the launches."""
+    versions (`greedy_vs_plain`).  `cfg` is the registry's config of
+    `cfg.name` or one cut in depth, which the launcher is handed in place
+    of the registry's.  Returns the launches."""
     import argparse
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch import serve
-    args = argparse.Namespace(arch="gemma-7b", device="cuda", **GREEDY)
+    args = argparse.Namespace(arch=cfg.name, device="cuda", **GREEDY)
     zero_launch_counts()
-    toks, t_prefill, t_decode = serve.run_greedy(args, params)
+    with mock.patch.object(serve, "get_config", lambda name, smoke: cfg):
+        toks, t_prefill, t_decode = serve.run_greedy(args, params)
     launches = {"paged_attention": paged_attention.launches,
                 "flash_attention": flash_attention.launches}
     want = {"paged_attention": cfg.n_layers * (GREEDY["gen"] - 1),
@@ -1688,18 +1726,24 @@ def default_mode(torch, cfg, params):
             or not ((0 <= toks) & (toks < cfg.vocab_padded)).all():
         raise AssertionError(f"default mode: launches {launches}, want "
                              f"{want}; tokens {toks.shape}")
-    log(f"default mode (batch {GREEDY['batch']} x {GREEDY['prompt_len']} "
+    log(f"default mode, {cfg.name} at {cfg.n_layers} layers (batch "
+        f"{GREEDY['batch']} x {GREEDY['prompt_len']} "
         f"tokens, {GREEDY['gen']} new): prefill {t_prefill * 1e3:.1f} ms, "
         f"{GREEDY['gen'] - 1} decode steps {t_decode * 1e3:.1f} ms "
         f"({(GREEDY['gen'] - 1) / t_decode:.2f} steps/s, "
         f"{(GREEDY['gen'] - 1) * GREEDY['batch'] / t_decode:.1f} tok/s); "
         f"launches {json.dumps(launches)}")
-    err, scale, agree, same = greedy_vs_plain(torch, cfg, params, toks)
+    err, scale, agree, same, routed = greedy_vs_plain(torch, cfg, params,
+                                                      toks)
+    pinned = ("" if routed is None else
+              f" with the plain run pinned to the kernel run's experts "
+              f"({routed[0]:.4g} routed by itself, expert sets differing in "
+              f"{routed[1]:.2%} of (layer, token))")
     log(f"default mode, prefill and {GREEDY['gen'] - 1} decode steps on the "
-        f"loop's tokens, kernels vs plain: logits max abs err {err:.4g} "
-        f"(logit scale {scale:.4g}, tolerance {LOGIT_TOL:.0%} of it), "
-        f"greedy agreement {agree:.3f}; the kernels' rerun picks the loop's "
-        f"token in {same} of {toks.size}")
+        f"loop's tokens, kernels vs plain: logits max abs err {err:.4g}"
+        f"{pinned} (logit scale {scale:.4g}, tolerance {LOGIT_TOL:.0%} of "
+        f"it), greedy agreement {agree:.3f}; the kernels' rerun picks the "
+        f"loop's token in {same} of {toks.size}")
     if not err <= LOGIT_TOL * scale:
         raise AssertionError("default mode logits: kernels and plain "
                              "versions differ beyond the tolerance")
@@ -2256,6 +2300,435 @@ def planes(torch, cfg, base):
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches_a, launches_b
 
+# ------------------------------------------------------------ phase 10
+MLA_ARCH = "deepseek-v2-lite-16b"
+# the dense and MoE GQA families through the default mode: full depth
+# where the card holds the model beside the run (None), else cut layers
+FAMILY_DEPTHS = {"minicpm-2b": None, "qwen3-32b": 8, "yi-34b": 8,
+                 "qwen3-moe-235b-a22b": 2}
+MOE_SPAN = "moe_layer"         # profiler range around each MoE layer
+
+
+def phase3_requests(vocab):
+    """Phase 3's 8 requests (prompt lengths, new tokens, sampling) with
+    prompt tokens drawn below `vocab`: the same draws as phase 3's."""
+    rng = np.random.default_rng(0)
+    requests = []
+    for i in range(8):
+        n = int(rng.integers(32, 513))
+        sampling = (dict(temperature=0.8, top_k=40, seed=7) if i == 3
+                    else {})
+        requests.append((rng.integers(1, vocab, n).tolist(),
+                         int(rng.integers(16, 33)), sampling))
+    return requests
+
+
+def param_bytes(params):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+def family_serve(torch, cfg, params, requests, label, chunked=False,
+                 **model_kw):
+    """`requests` through a one-tenant engine of `cfg` (8 rows; the slot
+    layout unless `model_kw` says otherwise; with `chunked`, chunks of
+    CHUNK under a CHUNK_BUDGET-token budget), weights installed before the
+    run, launch counts set to 0 just before it: every request finishes
+    inside the vocab, flash launches n_layers a monolithic prefill (0
+    chunked) and paged launches 0 (MLA decodes with no kernel).  Returns
+    (tokens by rid, launches, tokens per second)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.serving import (EngineModel, SchedulerConfig,
+                                     ServingEngine)
+    eng = ServingEngine(
+        [EngineModel(cfg.name, params, cfg, kv_slots=8,
+                     max_seq=SLOT_MAX_SEQ, **model_kw)],
+        sched=SchedulerConfig(max_prefill_per_step=4,
+                              prefill_token_budget=(CHUNK_BUDGET if chunked
+                                                    else None)),
+        prefill_chunk=CHUNK if chunked else 0, device="cuda")
+    for prompt, n_new, sampling in requests:
+        eng.submit(cfg.name, prompt, max_new_tokens=n_new, **sampling)
+    eng.residency.ensure(cfg.name, 0)          # set-up, as in phase 3
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_attention": flash_attention.launches}
+    reqs = list(eng.requests.values())
+    if not all(r.status.value == "finished"
+               and len(r.generated) == r.max_new_tokens
+               and all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+        raise AssertionError(f"{label}: not every request finished inside "
+                             "the vocab")
+    prefills = sum(st.n_prefills for st in eng.metrics.steps)
+    decode_batches = sum(1 for st in eng.metrics.steps if st.n_decoded)
+    want = {"paged_attention": 0,
+            "flash_attention": 0 if chunked else cfg.n_layers * prefills}
+    if launches != want or prefills != len(requests):
+        raise AssertionError(f"{label}: launches {launches}, want {want} "
+                             f"({prefills} prefills)")
+    n_tok = sum(len(r.generated) for r in reqs)
+    log(f"{label}: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tok/s; {len(eng.metrics.steps)} steps, "
+        f"{decode_batches} decode batches, {prefills} prefills, "
+        f"{eng.summary().get('prefill_chunks', 0):.0f} chunks; launches "
+        f"{json.dumps(launches)}")
+    tokens = {r.rid: list(r.generated) for r in reqs}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens, launches, n_tok / wall
+
+
+def recording_route(picks):
+    """A stand-in for `nn.moe._route` that appends each call's (T, k)
+    expert picks to `picks`: one entry a MoE layer for a whole prefill."""
+    from repro_torch.nn import moe as moe_mod
+    route = moe_mod._route
+
+    def call(x, router, k):
+        out = route(x, router, k)
+        picks.append(out[2])
+        return out
+    return mock.patch.object(moe_mod, "_route", call)
+
+
+def pinned_route(picks, state):
+    """A stand-in for `nn.moe._route` that routes each call's tokens to
+    the experts `picks` recorded (call i takes layer i mod len(picks),
+    rows from `state["offset"]`, a chunk's start), the gates renormalized
+    from the call's own probabilities: a second route through the model
+    without the routing's discontinuity, so what is left of the
+    difference is the attention's."""
+    from repro_torch.nn import moe as moe_mod
+    route = moe_mod._route
+
+    def call(x, router, k):
+        probs, _, _ = route(x, router, k)
+        rows = slice(state["offset"], state["offset"] + x.shape[0])
+        idx = picks[state["calls"] % len(picks)][rows]
+        state["calls"] += 1
+        vals = probs.gather(-1, idx)
+        return probs, vals / vals.sum(-1, keepdim=True).clamp(min=1e-9), idx
+    return mock.patch.object(moe_mod, "_route", call)
+
+
+def routing_flips(a, b):
+    """Share of (layer, token) expert sets that differ between two routes'
+    recorded picks."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    return diff / sum(x.shape[0] for x in a)
+
+
+def chunk_first_token_tie(torch, cfg, params, rid, request, picks):
+    """A request whose first token parts between the monolithic prefill
+    (flash, `picks[0]`) and the chunked one (the einsum over a staging
+    cache, `picks[1]`): its prompt through both routes again (chunks of
+    CHUNK).  The parting must be a near-tie: the monolithic pick's lead
+    over the chunked one at most twice the two routes' max abs logit
+    difference (what their rounding can move a difference of two logits
+    by).  MoE routing is discontinuous (a top-k near-tie sends a token to
+    another expert), so the routes are also compared with the chunked
+    route pinned to the monolithic route's experts: those logits within
+    LOGIT_TOL of the logit scale.  A sampled request is checked on its
+    logits divided by its temperature, as the sampler sees them."""
+    from repro_torch.launch.steps import chunk_prefill_step, prefill_step
+    from repro_torch.nn.model import init_cache
+    prompt, _, sampling = request
+    tokens = torch.tensor([prompt], device="cuda")
+    staging = -(-len(prompt) // CHUNK) * CHUNK
+    mono_picks = []
+    with recording_route(mono_picks):
+        m_logits, _ = prefill_step(params, tokens, cfg, staging)
+
+    def chunked(pin):
+        state = {"calls": 0, "offset": 0}
+        seen = []
+        patch = (pinned_route(mono_picks, state) if pin
+                 else recording_route(seen))
+        caches = init_cache(cfg, 1, staging, staging=True, device="cuda")
+        with patch:
+            for start in range(0, len(prompt), CHUNK):
+                n = min(CHUNK, len(prompt) - start)
+                state["offset"] = start
+                logits, caches = chunk_prefill_step(
+                    params, tokens[:, start:start + n], caches, start, n,
+                    cfg)
+        # per layer, the chunks' picks in token order
+        n_moe = len(mono_picks)
+        seen = [torch.cat(seen[i::n_moe]) for i in range(n_moe)] if seen \
+            else None
+        return logits, seen
+    c_logits, c_picks = chunked(False)
+    p_logits, _ = chunked(True)
+    temp = sampling.get("temperature", 1.0)
+    m32, c32, p32 = (x.float()[0, :cfg.vocab] / temp
+                     for x in (m_logits, c_logits, p_logits))
+    err = (c32 - m32).abs().max().item()
+    pinned_err = (p32 - m32).abs().max().item()
+    scale = m32.abs().max().item()
+    a, b = picks
+    lead = (m32[a] - m32[b]).item()
+    how = sampling or "greedy"
+    log(f"{cfg.name} request {rid} ({len(prompt)} tokens, {how}): first "
+        f"token {a} monolithic, {b} chunked; lead of {a} over {b} {lead:.4g} "
+        f"in the monolithic logits, {(c32[a] - c32[b]).item():.4g} in the "
+        f"chunked; the routes' logits max abs diff {err:.4g} (scale "
+        f"{scale:.4g}), expert sets differing in "
+        f"{routing_flips(mono_picks, c_picks):.2%} of (layer, token); with "
+        f"the chunked route pinned to the monolithic experts "
+        f"{pinned_err:.4g} (tolerance {LOGIT_TOL:.0%} of the scale)")
+    if not (abs(lead) <= 2 * err and pinned_err <= LOGIT_TOL * scale):
+        raise AssertionError(f"{cfg.name} request {rid}: the chunked first "
+                             f"token is no near-tie of the monolithic one")
+
+
+def mla_prefill_vs_plain(torch, cfg, params, prompt):
+    """The longest prompt's prefill logits through the flash kernel and
+    with both wrappers swapped for their plain versions, the latter twice:
+    routed by itself, and pinned to the kernel run's experts (MoE routing
+    is discontinuous; pinned, what is left is the kernel's).  Returns (max
+    abs error free, pinned, logit scale, same greedy pick, share of expert
+    sets that differ)."""
+    from repro_torch.launch.steps import prefill_step
+    tokens = torch.tensor([prompt], device="cuda")
+    k_picks, p_picks = [], []
+    with recording_route(k_picks):
+        k_logits, _ = prefill_step(params, tokens, cfg, len(prompt))
+    with plain_attention(), recording_route(p_picks):
+        p_logits, _ = prefill_step(params, tokens, cfg, len(prompt))
+    with plain_attention(), pinned_route(k_picks, {"calls": 0, "offset": 0}):
+        q_logits, _ = prefill_step(params, tokens, cfg, len(prompt))
+    k32, p32, q32 = (x.float()[:, :cfg.vocab]
+                     for x in (k_logits, p_logits, q_logits))
+    if not (torch.isfinite(k32).all() and k32.shape == (1, cfg.vocab)):
+        raise AssertionError("MLA prefill logits not finite / wrong shape")
+    return ((k32 - p32).abs().max().item(), (k32 - q32).abs().max().item(),
+            p32.abs().max().item(), bool(k32.argmax(-1) == p32.argmax(-1)),
+            routing_flips(k_picks, p_picks))
+
+
+def mla_decode_profile(torch, cfg, params, requests):
+    """The 8 prompts prefilled into a slot arena of SLOT_MAX_SEQ, then its
+    batched decode step: the experts its routing hits in each MoE layer
+    (recorded from `_route`), two weight-read bounds (every weight the
+    function reads as written, every expert included; and only the
+    experts this step's routing hit), the step profiled, and the MoE
+    layers' share of its device time (a profiler range around each).
+    Returns a dict of the numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.steps import cached_serve_step, prefill_step
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.nn import transformer as tf_mod
+    from repro_torch.serving import KVArena
+    from repro_torch.tree import tree_leaves
+    arena = KVArena(cfg, 8, SLOT_MAX_SEQ, device="cuda")
+    for rid, (prompt, _, _) in enumerate(requests[:8]):
+        slot = arena.alloc(rid)
+        logits, one = prefill_step(params, torch.tensor([prompt],
+                                                        device="cuda"),
+                                   cfg, SLOT_MAX_SEQ)
+        arena.install(slot, one, int(logits[0, :cfg.vocab].argmax()),
+                      len(prompt))
+    saved = [t.clone() for t in tree_leaves(arena.caches)]
+    tok, pos = arena.decode_inputs()
+    step = cached_serve_step(cfg)
+    picks = []
+    route = moe_mod._route
+
+    def recording(*a):
+        out = route(*a)
+        picks.append(out[2])
+        return out
+    with mock.patch.object(moe_mod, "_route", recording):
+        step(params, tok, arena.caches, pos)
+    for t, s_ in zip(tree_leaves(arena.caches), saved):
+        t.copy_(s_)
+    del saved
+    hit = [int(torch.unique(p).numel()) for p in picks]
+    table = params["embedding"]["table"]
+    read_all = param_bytes(params) - table.numel() * table.element_size() \
+        + 8 * cfg.d_model * table.element_size()
+    moe = next(seg["moe"] for seg in params["stack"]["segments"]
+               if "moe" in seg)
+    per_expert = sum(moe[k].shape[-2] * moe[k].shape[-1]
+                     * moe[k].element_size()
+                     for k in ("w_gate", "w_up", "w_down"))
+    read_hit = read_all - sum(cfg.n_experts - h for h in hit) * per_expert
+    wall_ms = profile_step(
+        torch, lambda: step(params, tok, arena.caches, pos), 5,
+        f"{cfg.name} slot decode step (8 rows, {cfg.n_layers} layers)",
+        read_all / HBM_BYTES_PER_S * 1e3)
+    orig = tf_mod.moe
+
+    def spanned(*a, **k):
+        with record_function(MOE_SPAN):
+            return orig(*a, **k)
+    with mock.patch.object(tf_mod, "moe", spanned), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step(params, tok, arena.caches, pos)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    device_ms = sum(e.device_time_total for e in averages
+                    if e.device_type == DeviceType.CUDA
+                    and e.key != MOE_SPAN) / 1e3 / 5
+    moe_ms = max((e.device_time_total for e in averages
+                  if e.key == MOE_SPAN and e.device_type == DeviceType.CPU),
+                 default=0) / 1e3 / 5
+    out = dict(wall_ms=wall_ms, device_ms=device_ms, moe_device_ms=moe_ms,
+               read_all_gb=read_all / 1e9, read_hit_gb=read_hit / 1e9,
+               bound_all_ms=read_all / HBM_BYTES_PER_S * 1e3,
+               bound_hit_ms=read_hit / HBM_BYTES_PER_S * 1e3,
+               experts_hit=hit, decode_tok_s=8 / (wall_ms / 1e3))
+    share = (f"{moe_ms / device_ms:.1%}" if moe_ms and device_ms
+             else "not measured")
+    log(f"{cfg.name} decode step weight reads: {out['read_all_gb']:.2f} GB "
+        f"as written (every expert; bound {out['bound_all_ms']:.2f} ms), "
+        f"{out['read_hit_gb']:.2f} GB for the experts this step's routing "
+        f"hit (bound {out['bound_hit_ms']:.2f} ms; experts hit of "
+        f"{cfg.n_experts} per MoE layer: {hit}); MoE layers "
+        f"{moe_ms:.2f} ms of {device_ms:.2f} ms device time ({share})")
+    del arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_mla(torch, S=512, seed=17):
+    """The flash wrapper at MLA's prefill shape (deepseek-v2-lite: B 1,
+    H = Hkv = 16, q/k D 192, v D 128 zero-padded to 192 as
+    `nn.attention._mla_attention` pads it; the wrapper pads all three to
+    256): kernel vs plain within KERNEL_TOL, its time, the plain
+    version's, SDPA's on the unpadded inputs, and the bound of the
+    unpadded work (q, k, v read once, the D-128 output written once; the
+    causal pairs' q·k in D 192 and p·v in D 128)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, Dk, Dv = 16, 192, 128
+    q, k = (torch.randn(1, S, H, Dk, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn(1, S, H, Dv, generator=g, device="cuda").to(torch.bfloat16)
+
+    def kernel():
+        return flash_attention(q, k, F.pad(v, (0, Dk - Dv)),
+                               causal=True)[..., :Dv]
+
+    def plain():
+        return flash_attention_plain(q, k, F.pad(v, (0, Dk - Dv)),
+                                     causal=True)[..., :Dv]
+    out, ref = kernel(), plain()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (err <= KERNEL_TOL and torch.isfinite(out).all()):
+        raise AssertionError(f"flash_attention at MLA's shape disagrees: "
+                             f"{err} > {KERNEL_TOL}")
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    pairs = S * (S + 1) // 2
+    n_bytes = 2 * S * H * (2 * Dk + 2 * Dv)
+    n_flops = 2 * H * pairs * (Dk + Dv)
+    return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops)
+
+
+def families(torch):
+    """Phase 10: deepseek-v2-lite-16b at full width and all 27 layers
+    (MLA + MoE) through the engine in the slot, paged and chunked runs,
+    its prefill against the plain versions and its decode step profiled;
+    then the GQA families through the default mode, each freed before the
+    next.  Returns ({config: launches}, deepseek's decode numbers)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import init_params
+    t_phase = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"init_params {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {param_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    requests = phase3_requests(cfg.vocab)
+    n_pages = 8 * -(-SLOT_MAX_SEQ // 16)
+    runs = {}
+    runs["slot"] = family_serve(torch, cfg, params, requests,
+                                f"{cfg.name} slot engine")
+    runs["paged"] = family_serve(torch, cfg, params, requests,
+                                 f"{cfg.name} paged engine (page 16)",
+                                 kv_layout="paged", page_size=16,
+                                 n_pages=n_pages)
+    runs["chunked"] = family_serve(
+        torch, cfg, params, requests,
+        f"{cfg.name} paged engine, chunks of {CHUNK} under {CHUNK_BUDGET}",
+        chunked=True, kv_layout="paged", page_size=16, n_pages=n_pages)
+    log(f"{cfg.name}: peak memory over the three runs "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    slot_toks = runs["slot"][0]
+    first = {k: sum(v[0][r][0] == slot_toks[r][0] for r in slot_toks)
+             for k, v in runs.items()}
+    whole = {k: sum(v[0][r] == slot_toks[r] for r in slot_toks)
+             for k, v in runs.items()}
+    log(f"{cfg.name} against the slot run: first tokens equal {first}, "
+        f"whole requests equal {whole} (of {len(requests)})")
+    if first["paged"] != len(requests):
+        raise AssertionError(f"{cfg.name}: the paged run's first tokens, "
+                             f"from the same monolithic prefill, differ")
+    for rid, toks in runs["chunked"][0].items():
+        if toks[0] != slot_toks[rid][0]:
+            chunk_first_token_tie(torch, cfg, params, rid, requests[rid],
+                                  (slot_toks[rid][0], toks[0]))
+    err, pinned_err, scale, agree, flips = mla_prefill_vs_plain(
+        torch, cfg, params, max((p for p, _, _ in requests), key=len))
+    log(f"{cfg.name} prefill of the longest prompt, kernels vs plain: "
+        f"logits max abs err {err:.4g} (logit scale {scale:.4g}; expert "
+        f"sets differing in {flips:.2%} of (layer, token)), {pinned_err:.4g} "
+        f"with the plain run pinned to the kernel run's experts (tolerance "
+        f"{LOGIT_TOL:.0%} of the scale; KERNEL_TOL {KERNEL_TOL}), same "
+        f"greedy pick {agree}")
+    if not pinned_err <= LOGIT_TOL * scale:
+        raise AssertionError(f"{cfg.name} prefill logits: kernels and "
+                             f"plain versions differ by {pinned_err}")
+    decode = mla_decode_profile(torch, cfg, params, requests)
+    decode["serve_tok_s"] = {k: v[2] for k, v in runs.items()}
+    launches = {MLA_ARCH: {k: v[1] for k, v in runs.items()}}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, depth in FAMILY_DEPTHS.items():
+        t0 = time.perf_counter()
+        fcfg = get_config(name)
+        if depth is not None:
+            fcfg = dataclasses.replace(fcfg, n_layers=depth)
+        fparams = init_params(fcfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"init_params {name}: {fcfg.n_layers} of "
+            f"{get_config(name).n_layers} layers, d_model {fcfg.d_model}, "
+            f"{param_bytes(fparams) / 1e9:.2f} GB")
+        launches[name] = default_mode(torch, fcfg, fparams)
+        del fparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 10 (families): {time.perf_counter() - t_phase:.1f} s")
+    return launches, decode
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2356,6 +2829,13 @@ def main() -> int:
         log(f"flash_attention B{B} S{S} H16 D256 causal: err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
             f"kernel/sdpa {ms / lib_ms:.2f}), bound {b:.4f} ms by {by}")
+    mla = check_flash_mla(torch)
+    err, ms, plain_ms, lib_ms, (b, by) = mla
+    log(f"flash_attention B1 S512 H16 D192 (MLA, V 128 zero-padded to 192) "
+        f"causal: err {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+        f"on the unpadded inputs {lib_ms:.4f} ms, kernel/sdpa "
+        f"{ms / lib_ms:.2f}), bound of the unpadded work {b:.4f} ms by "
+        f"{by}, kernel/bound {ms / b:.2f}")
     # f32: paged at F32_TOL, flash at FLASH_F32_TOL
     f32 = torch.float32
     paged32, errs32 = {}, {"paged": [], "flash": []}
@@ -2443,14 +2923,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"init_params {cfg.name}: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    requests = []
-    for i in range(8):
-        n = int(rng.integers(32, 513))
-        sampling = (dict(temperature=0.8, top_k=40, seed=7) if i == 3
-                    else {})
-        requests.append((rng.integers(1, cfg.vocab, n).tolist(),
-                         int(rng.integers(16, 33)), sampling))
+    requests = phase3_requests(cfg.vocab)
     launches, mono_tokens = serve(torch, cfg, params, requests, page=16)
 
     # phase 4: first decode step, kernels against plain versions
@@ -2478,7 +2951,7 @@ def main() -> int:
                 "flash_attention": flash_attention}
     ex, batch, s_logits, s_launches = streaming(torch, cfg, params, counters)
     from repro_torch.nn.model import forward
-    resident, _ = forward(params, batch["tokens"], cfg, last_only=True)
+    resident, _, _ = forward(params, batch["tokens"], cfg, last_only=True)
     r32 = resident[:, 0, :cfg.vocab].float()
     s32 = s_logits[:, -1, :cfg.vocab].float()
     log(f"streaming (int8 codes) vs resident bf16 weights, last position: "
@@ -2521,7 +2994,21 @@ def main() -> int:
     # phase 9: the wear, fault and telemetry planes at full width
     plane_launches = planes(torch, cfg, params)
 
-    # phase 10: report
+    # phase 10: the dense GQA families and deepseek's MLA + MoE, gemma-7b's
+    # weights freed first
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_launches, fam_decode = families(torch)
+    log(f"phase 10 {MLA_ARCH} decode: {json.dumps(fam_decode)}")
+
+    def family_fields(name):
+        return {"families_launches": {
+            arch: ({run: v[name] for run, v in runs.items()}
+                   if arch == MLA_ARCH else runs[name])
+            for arch, runs in fam_launches.items()}}
+
+    # phase 11: report
     def planes_fields(name):
         return {arm: launches[name]
                 for arm, launches in zip(("off", "on"), plane_launches)}
@@ -2542,7 +3029,10 @@ def main() -> int:
          "default_mode_launches": greedy_launches["paged_attention"],
          "planes_launches": planes_fields("paged_attention"),
          **f32_fields(errs32["paged"], paged32[PAGED_F32_MAIN], None),
-         "f32_cold_ms_by_shape": {k: v[1] for k, v in paged32.items()}},
+         "f32_cold_ms_by_shape": {k: v[1] for k, v in paged32.items()},
+         "cold_ms_by_shape": {k: v[1] for k, v in paged.items()},
+         "bound_ms_by_shape": {k: v[4][0] for k, v in paged.items()},
+         **family_fields("paged_attention")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
@@ -2558,6 +3048,9 @@ def main() -> int:
          "default_mode_launches": greedy_launches["flash_attention"],
          "planes_launches": planes_fields("flash_attention"),
          **f32_fields(errs32["flash"], flash32[16], flash32[16][3]),
+         "mla_max_abs_err": mla[0], "mla_ms": mla[1], "mla_plain_ms": mla[2],
+         "mla_library_ms": mla[3], "mla_bound_ms": mla[4][0],
+         "mla_bound_by": mla[4][1], **family_fields("flash_attention"),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
          "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},
         {"name": "delta_apply", "route": "cuda",

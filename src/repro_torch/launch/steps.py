@@ -84,8 +84,9 @@ def _finalize_attn_entry(cfg: ModelConfig, entry, *, axis: int, window: int,
                          target_len: int, true_len: int,
                          ring_windows: bool):
     """One attention entry from the raw full-length staging layout to the
-    serving layout: int8 tenants quantize here (staging attends in bf16,
-    as the monolithic prefill does, and quantizes once); with
+    serving layout: MLA latents are only sliced (no int8 latent cache, as
+    in the reference); int8 GQA tenants quantize here (staging attends in
+    bf16, as the monolithic prefill does, and quantizes once); with
     `ring_windows` (slot arenas) a sliding-window layer is gathered down to
     its window-sized ring; every other leaf is sliced to `target_len`.
     Page pools store every position, so their install source is only
@@ -104,6 +105,8 @@ def _finalize_attn_entry(cfg: ModelConfig, entry, *, axis: int, window: int,
             return leaf.narrow(axis, 0, target_len)
         return leaf
 
+    if cfg.attn_type == "mla":
+        return {name: shape_to(leaf) for name, leaf in entry.items()}
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(entry["k"])
         vq, vs = _kv_quant(entry["v"])

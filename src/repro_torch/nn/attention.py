@@ -140,7 +140,7 @@ def attention(
     cache_pos a 0-d or (B,) tensor) or paged decode (cache = page pools,
     page_table (B, T), cache_pos (B,) per-row positions).  Returns
     (y (B, S, d_model), new_cache); caches are written in place."""
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attn_type {cfg.attn_type!r} is not ported yet")
     B, S, _ = x.shape
@@ -156,6 +156,12 @@ def attention(
         cache_pos = cache_pos.reshape(-1).expand(B)
         positions = cache_pos[:, None]
 
+    if cfg.attn_type == "mla":
+        return _mla_attention(params, x, cfg, positions=positions,
+                              cache=cache, cache_pos=cache_pos,
+                              make_cache=make_cache, cache_len=cache_len,
+                              page_table=page_table)
+
     q, k, v = _gqa_qkv(params, x, cfg, positions)
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     new_cache = None
@@ -167,8 +173,8 @@ def attention(
         # a chunk may be one token (a prefix-cache skip can leave one); the
         # reference runs that through its decode branch at the same scalar
         # position, with the same write and mask for full-attention bf16
-        new_cache = cache
-        kc, vc = _staging_append(cache, k, v, int(cache_pos))
+        new_cache = _staging_append(cache, {"k": k, "v": v}, int(cache_pos))
+        kc, vc = cache["k"], cache["v"]
         kpos = torch.arange(kc.shape[1], device=dev)[None, :]
         qpos = (int(cache_pos) + torch.arange(S, device=dev))[:, None]
         valid = kpos <= qpos
@@ -269,13 +275,20 @@ def _slot_write(cache, k, v, cfg: ModelConfig, layer_window: int, pos):
     pos = pos.long()
     slot = (torch.remainder(pos, ring) if ring
             else torch.clamp(pos, 0, L - 1))
-    rows = torch.arange(pos.shape[0], device=pos.device)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(k)
         vq, vs = _kv_quant(v)
         new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         new = {"k": k, "v": v}
+    return _row_write(cache, new, slot)
+
+
+def _row_write(cache, new, slot):
+    """Write each of this step's (B, 1, ...) entries `new` at its row's
+    `slot` (B,) of the contiguous cache leaf of the same name, in place;
+    returns the cache."""
+    rows = torch.arange(slot.shape[0], device=slot.device)
     for name, val in new.items():
         cache[name][rows, slot] = val[:, 0].to(cache[name].dtype)
     return cache
@@ -332,21 +345,23 @@ def _slot_attend(cache, q, cfg: ModelConfig, layer_window: int, pos):
     return _softmax_attend(q, kc, vc, valid[:, None, :], cfg.logit_softcap)
 
 
-def _staging_append(cache, k, v, start: int):
+def _staging_append(cache, new, start: int):
     """Chunked-prefill append (the reference's `_dus_batch` at a scalar
-    start): write this chunk's K/V (B, S, Hkv, D) at absolute positions
-    [start, start+S) of the staging cache, in place, and return its full
-    (B, L, Hkv, D) K and V.  Staging holds raw K/V in the activation dtype
-    for every tenant (int8 tenants quantize once, at page install).  The
-    reference's dynamic_update_slice would clamp a start that spills past
-    the cache and overwrite earlier positions; here that raises."""
-    S, L = k.shape[1], cache["k"].shape[1]
+    start): write each of this chunk's (B, S, ...) entries `new` (K/V, or
+    MLA's latents) at absolute positions [start, start+S) of the staging
+    cache leaf of the same name, in place; returns the cache.  Staging
+    holds raw K/V in the activation dtype for every tenant (int8 tenants
+    quantize once, at page install).  The reference's
+    dynamic_update_slice would clamp a start that spills past the cache
+    and overwrite earlier positions; here that raises."""
+    S = next(iter(new.values())).shape[1]
+    L = next(iter(cache.values())).shape[1]
     if not 0 <= start <= L - S:
         raise ValueError(f"chunk of {S} tokens at {start} does not fit a "
                          f"staging cache of {L}")
-    cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
-    cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
-    return cache["k"], cache["v"]
+    for name, val in new.items():
+        cache[name][:, start:start + S] = val.to(cache[name].dtype)
+    return cache
 
 
 def _paged_ops(pool_leaf, cache_pos, page_table):
@@ -403,12 +418,135 @@ def _paged_scatter_gqa(cache, k, v, cfg: ModelConfig, cache_pos, page_table):
     place and return the cache dict, without materializing the gathered
     (B, T·page, ...) view — the paged kernel reads the pools through the
     page table itself."""
-    scatter, _ = _paged_ops(cache["k"], cache_pos, page_table)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(k)
         vq, vs = _kv_quant(v)
-        return {"k": scatter(cache["k"], kq),
-                "v": scatter(cache["v"], vq),
-                "k_scale": scatter(cache["k_scale"], ks),
-                "v_scale": scatter(cache["v_scale"], vs)}
-    return {"k": scatter(cache["k"], k), "v": scatter(cache["v"], v)}
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k, "v": v}
+    return _paged_scatter(cache, new, cache_pos, page_table)
+
+
+# ==================================================================== MLA
+def _mla_absorbed(params, q_nope, q_rope, ckv, kr, valid, cfg: ModelConfig):
+    """Absorbed-matmul decode attention (DeepSeek-V2's low-rank KV), all in
+    f32 in the reference's order: W_uk folded into the query, the score
+    q_eff·c_kv + q_rope·k_rope and only then the scale, the masked softmax,
+    the context over the latents and W_uv last.  q_nope/q_rope (B, S, H,
+    ·), ckv (B, L, r) and kr (B, L, rope) the latent cache in position
+    order, valid (B|1, S, L) -> (B, S, H, v_head_dim) f32."""
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    w_uk = params["w_uk"].float().reshape(r, H, nope)
+    w_uv = params["w_uv"].float().reshape(r, H, cfg.v_head_dim)
+    ckv = ckv.float()
+    q_eff = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+    s = torch.einsum("bshr,bkr->bhsk", q_eff, ckv)
+    s = s + torch.einsum("bshd,bkd->bhsk", q_rope.float(), kr.float())
+    s = s * (1.0 / math.sqrt(nope + rope_d))
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhsk,bkr->bshr", p, ckv)
+    return torch.einsum("bshr,rhv->bshv", ctx, w_uv)
+
+
+def _mla_attention(params, x, cfg: ModelConfig, *, positions, cache,
+                   cache_pos, make_cache, cache_len, page_table):
+    """MLA (the reference's `_mla_attention`): the cache holds the latents
+    c_kv (rank kv_lora_rank, RMS-normed) and the shared rotary key k_rope.
+
+      * prefill materializes per-head K (nope ‖ k_rope broadcast, D 192 at
+        full width) and V (D 128) and attends through the flash kernel,
+        V zero-padded to K's width (zero columns add nothing to the others,
+        and the scale stays 1/sqrt(D_k));
+      * a chunk (an int cache_pos, S > 1) appends its latents to the
+        staging cache and materializes K/V from the whole of it, attending
+        through the reference's f32 masked einsum;
+      * one token against a cache — slot decode (a tensor position), paged
+        decode (a page table) and a one-token chunk, which the reference
+        sends to the same branch — runs the absorbed f32 math
+        (`_mla_absorbed`) over the latents in position order, with no
+        kernel: the paged route gathers the row's pages first.
+
+    There is no int8 latent cache: the reference ignores kv_cache_dtype
+    for MLA.  Returns (y (B, S, d_model), new_cache)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = x.dtype
+    q = torch.matmul(x, params["w_q"].to(dt)).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv = rmsnorm(params["kv_norm"], torch.matmul(x, params["w_dkv"].to(dt)),
+                   cfg.norm_eps)
+    k_rope = torch.matmul(x, params["w_kr"].to(dt))
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+    new = {"c_kv": c_kv, "k_rope": k_rope}
+
+    if cache is not None and S == 1:
+        if page_table is not None:
+            new_cache = _paged_scatter(cache, new, cache_pos, page_table)
+            _, gather = _paged_ops(cache["c_kv"], cache_pos, page_table)
+            ckv, kr = gather(new_cache["c_kv"]), gather(new_cache["k_rope"])
+        else:
+            # at each row's position, clamped into the cache as
+            # dynamic_update_slice clamps
+            new_cache = _row_write(cache, new, torch.clamp(
+                positions[:, 0].long(), 0, cache["c_kv"].shape[1] - 1))
+            ckv, kr = new_cache["c_kv"], new_cache["k_rope"]
+        kpos = torch.arange(ckv.shape[1], device=x.device)[None, :]
+        valid = (kpos <= positions[:, :1])[:, None, :]
+        o = _mla_absorbed(params, q_nope, q_rope, ckv, kr, valid, cfg)
+    else:
+        new_cache = None
+        if cache is not None:
+            # a chunk: its latents into the staging cache, K/V from all of it
+            new_cache = _staging_append(cache, new, int(cache_pos))
+            c_all, kr_all = cache["c_kv"], cache["k_rope"]
+        else:
+            c_all, kr_all = c_kv, k_rope
+        Sc = c_all.shape[1]
+        k_nope = torch.matmul(c_all, params["w_uk"].to(dt)).reshape(
+            B, Sc, H, nope)
+        vv = torch.matmul(c_all, params["w_uv"].to(dt)).reshape(B, Sc, H,
+                                                                vdim)
+        k = torch.cat([k_nope, kr_all[:, :, None, :].expand(B, Sc, H, rope_d)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        if cache is not None:
+            kpos = torch.arange(Sc, device=x.device)[None, :]
+            mask = (kpos <= positions[0][:, None])[None]
+            o = _softmax_attend(qq[:, :, :, None], k, vv, mask,
+                                0.0)[:, :, :, 0]
+        elif cfg.causal:
+            vp = torch.nn.functional.pad(vv, (0, nope + rope_d - vdim))
+            o = flash_attention(qq, k, vp, causal=True)[..., :vdim]
+        else:
+            mask = _mask(positions, positions, causal=False, window=0,
+                         prefix_len=0)
+            o = _softmax_attend(qq[:, :, :, None], k, vv, mask,
+                                0.0)[:, :, :, 0]
+        if make_cache:
+            L = cache_len or S
+            new_cache = {
+                "c_kv": torch.zeros((B, L, cfg.kv_lora_rank), dtype=dt,
+                                    device=x.device),
+                "k_rope": torch.zeros((B, L, rope_d), dtype=dt,
+                                      device=x.device)}
+            for name, val in new.items():
+                new_cache[name][:, :S] = val
+
+    o = o.to(dt).reshape(B, S, H * vdim)
+    return torch.matmul(o, params["w_o"].to(dt)), new_cache
+
+
+def _paged_scatter(cache, new, cache_pos, page_table):
+    """Write this step's (B, 1, ...) entries `new` (K/V, int8 codes and
+    scales, or MLA's latents) into the page pools of the same names, in
+    place; returns the cache."""
+    scatter, _ = _paged_ops(next(iter(cache.values())), cache_pos,
+                            page_table)
+    for name, val in new.items():
+        scatter(cache[name], val)
+    return cache

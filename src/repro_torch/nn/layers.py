@@ -12,7 +12,6 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.nn.config import ModelConfig
 
@@ -79,10 +78,17 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu, `x * (1 / (1 + exp(-x)))`, evaluated op by op in x's
+    dtype as XLA evaluates it; the fused `F.silu` rounds once and differs
+    in the last bit on about a third of bf16 outputs."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "gelu":
         return _gelu_tanh(x)
-    return F.silu(x)
+    return _silu(x)
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

@@ -13,38 +13,46 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import embed, rmsnorm, unembed
+from repro_torch.nn.moe import init_moe
 from repro_torch.nn.transformer import apply_stack, layer_kind, stack_plan
 
 Params = Dict[str, Any]
 
 
 # ------------------------------------------------------------------ init
-def _block_shapes(cfg: ModelConfig) -> Dict[str, Dict[str, Tuple[int, ...]]]:
-    """Matrix shapes of one dense attention block (fan-in is dim 0)."""
+# leaves the model uses in f32 (the router's softmax, MLA's absorbed
+# decode); every other matrix is cast to the bf16 activations at each use
+F32_LEAVES = ("router", "w_uk", "w_uv")
+
+
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Matrix shapes of one attention module (fan-in is dim 0)."""
     d = cfg.d_model
-    shapes = {
-        "attn": {"w_q": (d, cfg.q_dim), "w_k": (d, cfg.kv_dim),
-                 "w_v": (d, cfg.kv_dim), "w_o": (cfg.q_dim, d)},
-        "mlp": {"w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)},
-    }
-    if cfg.gated:
-        shapes["mlp"]["w_gate"] = (d, cfg.d_ff)
-    return shapes
+    if cfg.attn_type == "mla":
+        H, r = cfg.n_heads, cfg.kv_lora_rank
+        return {"w_q": (d, H * (cfg.qk_nope_dim + cfg.qk_rope_dim)),
+                "w_dkv": (d, r), "w_kr": (d, cfg.qk_rope_dim),
+                "w_uk": (r, H * cfg.qk_nope_dim),
+                "w_uv": (r, H * cfg.v_head_dim),
+                "w_o": (H * cfg.v_head_dim, d)}
+    return {"w_q": (d, cfg.q_dim), "w_k": (d, cfg.kv_dim),
+            "w_v": (d, cfg.kv_dim), "w_o": (cfg.q_dim, d)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random weights with the reference's tree, shapes and scales
-    (`repro.nn.model.init_params`): matrices N(0, 1)/sqrt(fan_in), the
-    embedding N(0, 1)·0.02, norm scales 1.  Drawn from a `torch.Generator`
-    seeded with `seed` on `device` (the draws differ from jax's), matrices
-    stored in bf16 and norm scales in f32 (see `repro_torch.weights`)."""
+    (`repro.nn.model.init_params`): matrices N(0, 1)/sqrt(fan_in) (axis 0,
+    or axis 1 of the (E, ·, ·) expert stacks), the embedding N(0, 1)·0.02,
+    norm scales 1.  Drawn from a `torch.Generator` seeded with `seed` on
+    `device` (the draws differ from jax's); matrices are stored in bf16,
+    norm scales and the `F32_LEAVES` in f32 (see `repro_torch.weights`).
+    Dense GQA (qk_norm too), MLA and MoE stacks are ported."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    bf16 = torch.bfloat16
 
-    def normal(shape, scale):
-        out = torch.empty(shape, dtype=bf16, device=dev)
+    def draw(shape, scale, dtype):
+        out = torch.empty(shape, dtype=dtype, device=dev)
         # one f32 draw per leading slice keeps the f32 scratch small
         for row in out.view(-1, *shape[-2:]) if len(shape) > 2 else [out]:
             row.copy_(torch.randn(row.shape, generator=gen, device=dev)
@@ -52,25 +60,45 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         return out
 
     for start, _, _ in stack_plan(cfg):
-        if layer_kind(cfg, start) != "attn" or cfg.layer_is_moe[start] \
-                or cfg.attn_type != "gqa" or cfg.qk_norm:
-            raise NotImplementedError(f"{cfg.name}: only dense GQA stacks "
-                                      "are ported yet")
-    emb = {"table": normal((cfg.vocab_padded, cfg.d_model), 0.02)}
+        if layer_kind(cfg, start) != "attn" or cfg.input_mode != "tokens":
+            raise NotImplementedError(f"{cfg.name}: {cfg.family} stacks are "
+                                      "not ported yet")
+    emb = {"table": draw((cfg.vocab_padded, cfg.d_model), 0.02,
+                         torch.bfloat16)}
     if not cfg.tie_embeddings:
-        emb["head"] = normal((cfg.d_model, cfg.vocab_padded),
-                             1.0 / math.sqrt(cfg.d_model))
+        emb["head"] = draw((cfg.d_model, cfg.vocab_padded),
+                           1.0 / math.sqrt(cfg.d_model), torch.bfloat16)
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev)
+
     segments: List[Params] = []
-    for _, length, scanned in stack_plan(cfg):
+    for start, length, scanned in stack_plan(cfg):
         lead = (length,) if scanned else ()
-        mats = {part: {name: normal(lead + shape, 1.0 / math.sqrt(shape[0]))
-                       for name, shape in shapes.items()}
-                for part, shapes in _block_shapes(cfg).items()}
-        segments.append({
-            "norm1": {"scale": torch.ones(lead + (cfg.d_model,), device=dev)},
-            "attn": mats["attn"],
-            "norm2": {"scale": torch.ones(lead + (cfg.d_model,), device=dev)},
-            "mlp": mats["mlp"]})
+
+        def normal(shape, scale, dtype=torch.bfloat16):
+            return draw(lead + shape, scale, dtype)
+
+        attn = {name: normal(shape, 1.0 / math.sqrt(shape[0]),
+                             torch.float32 if name in F32_LEAVES
+                             else torch.bfloat16)
+                for name, shape in _attn_shapes(cfg).items()}
+        if cfg.attn_type == "mla":
+            attn["kv_norm"] = {"scale": ones(*lead, cfg.kv_lora_rank)}
+        elif cfg.qk_norm:
+            attn["q_norm"] = {"scale": ones(*lead, cfg.head_dim)}
+            attn["k_norm"] = {"scale": ones(*lead, cfg.head_dim)}
+        block = {"norm1": {"scale": ones(*lead, cfg.d_model)}, "attn": attn,
+                 "norm2": {"scale": ones(*lead, cfg.d_model)}}
+        if cfg.layer_is_moe[start]:
+            block["moe"] = init_moe(cfg, normal)
+        else:
+            d, f = cfg.d_model, cfg.d_ff
+            block["mlp"] = {"w_up": normal((d, f), 1.0 / math.sqrt(d)),
+                            "w_down": normal((f, d), 1.0 / math.sqrt(f))}
+            if cfg.gated:
+                block["mlp"]["w_gate"] = normal((d, f), 1.0 / math.sqrt(d))
+        segments.append(block)
     return {"embedding": emb, "stack": {"segments": segments},
             "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)}}
 
@@ -89,25 +117,26 @@ def _inputs_to_x(params: Params, batch: Dict[str, torch.Tensor],
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches=None, cache_pos=None, make_cache: bool = False,
             cache_len: int = 0, last_only: bool = False, page_table=None
-            ) -> Tuple[torch.Tensor, Optional[Any]]:
-    """tokens (B, S) -> (logits (B, S|1, vocab_padded), new_caches).
+            ) -> Tuple[torch.Tensor, Optional[Any], torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S|1, vocab_padded), new_caches, the
+    MoE layers' summed router aux loss (f32, 0 for dense stacks)).
     ``last_only`` restricts the unembed to the final position."""
     x, _ = _inputs_to_x(params, {"tokens": tokens}, cfg)
-    x, new_caches = apply_stack(
+    x, new_caches, aux = apply_stack(
         params["stack"], x, cfg, caches=caches, cache_pos=cache_pos,
         make_cache=make_cache, cache_len=cache_len, page_table=page_table)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps).to(torch.bfloat16)
     if last_only:
         x = x[:, -1:]
-    return unembed(params["embedding"], x, cfg), new_caches
+    return unembed(params["embedding"], x, cfg), new_caches, aux
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             cache_len: int):
     """Run the prompt (B, S) through the model, returning
     (next_token_logits (B, vocab_padded), caches of length cache_len)."""
-    logits, caches = forward(params, tokens, cfg, make_cache=True,
-                             cache_len=cache_len, last_only=True)
+    logits, caches, _ = forward(params, tokens, cfg, make_cache=True,
+                                cache_len=cache_len, last_only=True)
     return logits[:, 0], caches
 
 
@@ -119,21 +148,32 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     layers keep full ``cache_len`` buffers (the window is applied in the
     score mask) and int8 tenants keep raw K/V in ``dtype`` (quantized once
     at page install, as the monolithic prefill quantizes after attending).
-    Only GQA attention stacks are ported."""
+    MLA layers cache their latents, {c_kv (..., batch, cache_len,
+    kv_lora_rank), k_rope (..., rope)} in ``dtype`` (the reference has no
+    int8 latent cache).  Attention stacks only: recurrent caches are not
+    ported."""
     dev = resolve_device(device)
     int8 = cfg.kv_cache_dtype == "int8" and not staging
     caches = []
     for start, length, scanned in stack_plan(cfg):
         kind = layer_kind(cfg, start)
-        if kind != "attn" or cfg.attn_type != "gqa":
+        if kind != "attn":
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): "
-                f"{kind if kind != 'attn' else cfg.attn_type} caches are "
-                "not ported yet")
+                f"{cfg.name} ({cfg.family}): {kind} caches are not ported "
+                "yet")
+        lead = (length,) if scanned else ()
+        if cfg.attn_type == "mla":
+            caches.append({"attn": {
+                "c_kv": torch.zeros(lead + (batch, cache_len,
+                                            cfg.kv_lora_rank),
+                                    dtype=dtype, device=dev),
+                "k_rope": torch.zeros(lead + (batch, cache_len,
+                                              cfg.qk_rope_dim),
+                                      dtype=dtype, device=dev)}})
+            continue
         window = cfg.window_for_layer(start)
         L = min(window, cache_len) if window and not staging else cache_len
-        shape = ((length,) if scanned else ()) + (
-            batch, L, cfg.n_kv_heads, cfg.head_dim)
+        shape = lead + (batch, L, cfg.n_kv_heads, cfg.head_dim)
         kv_dt = torch.int8 if int8 else dtype
         entry = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
                  "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
@@ -155,8 +195,8 @@ def chunk_prefill(params: Params, tokens: torch.Tensor, caches, start: int,
     at position start + n_valid - 1, caches) — the last chunk's logits are
     the prompt's next-token distribution, as ``prefill`` returns it."""
     x, _ = _inputs_to_x(params, {"tokens": tokens}, cfg)
-    x, _ = apply_stack(params["stack"], x, cfg, caches=caches,
-                       cache_pos=int(start))
+    x, _, _ = apply_stack(params["stack"], x, cfg, caches=caches,
+                          cache_pos=int(start))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps).to(torch.bfloat16)
     logits = unembed(params["embedding"], x[:, n_valid - 1:n_valid], cfg)
     return logits[:, 0], caches
@@ -171,7 +211,7 @@ def decode_step(params: Params, token: torch.Tensor, caches, pos,
     layout (see serving.kv_arena).  The caches are written in place and
     returned."""
     pos = torch.as_tensor(pos, device=token.device)
-    logits, new_caches = forward(params, token[:, None], cfg, caches=caches,
-                                 cache_pos=pos, last_only=True,
-                                 page_table=page_table)
+    logits, new_caches, _ = forward(params, token[:, None], cfg,
+                                    caches=caches, cache_pos=pos,
+                                    last_only=True, page_table=page_table)
     return logits[:, 0], new_caches

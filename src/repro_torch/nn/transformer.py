@@ -1,5 +1,5 @@
 """Block assembly and the layer stack — PyTorch port of
-`repro.nn.transformer` (the dense attention block).
+`repro.nn.transformer` (attention blocks, dense or MoE).
 
 The reference scans homogeneous runs of layers over stacked parameters;
 the port keeps that stacked layout (so weights and caches carry over leaf
@@ -23,6 +23,7 @@ import torch
 from repro_torch.nn.attention import attention
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import mlp, rmsnorm
+from repro_torch.nn.moe import moe
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -68,15 +69,16 @@ def stack_plan(cfg: ModelConfig, min_group: int = 4) -> List[Tuple[int, int, boo
 def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
                 cache: Optional[Params] = None,
                 cache_pos=None, make_cache: bool = False, cache_len: int = 0,
-                page_table=None) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Pre-norm attention + gated MLP block over the residual stream `x`
-    (bf16, or the f32 unrounded sum a previous block returned).  Returns
-    (the f32 unrounded residual sum, new_cache)."""
+                page_table=None
+                ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Pre-norm attention + gated MLP (or MoE) block over the residual
+    stream `x` (bf16, or the f32 unrounded sum a previous block returned).
+    Returns (the f32 unrounded residual sum, new_cache, the MoE router's
+    aux loss (f32; 0 on a dense block))."""
     kind = layer_kind(cfg, i)
-    if kind != "attn" or cfg.layer_is_moe[i]:
+    if kind != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: layer {i} ({kind}, moe={cfg.layer_is_moe[i]}) is "
-            "not ported yet")
+            f"{cfg.name}: layer {i} ({kind}) is not ported yet")
     act = torch.bfloat16
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps).to(act)
     y, new_attn = attention(
@@ -86,28 +88,35 @@ def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
         page_table=page_table)
     mid = x.to(act).float() + y.float()
     h2 = rmsnorm(bp["norm2"], mid, cfg.norm_eps).to(act)
-    out = mid.to(act).float() + mlp(bp["mlp"], h2, cfg.act).float()
-    return out, ({"attn": new_attn} if new_attn is not None else None)
+    if "moe" in bp:
+        y2, aux = moe(bp["moe"], h2, cfg)
+    else:
+        y2, aux = mlp(bp["mlp"], h2, cfg.act), torch.zeros((), device=x.device)
+    out = mid.to(act).float() + y2.float()
+    return out, ({"attn": new_attn} if new_attn is not None else None), aux
 
 
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 caches: Optional[List[Any]] = None,
                 cache_pos=None, make_cache: bool = False, cache_len: int = 0,
-                page_table=None) -> Tuple[torch.Tensor, Optional[List[Any]]]:
+                page_table=None
+                ) -> Tuple[torch.Tensor, Optional[List[Any]], torch.Tensor]:
     """Run every segment of `stack_plan(cfg)`.  Stacked segments index
     their (L, ...) params and caches per layer; a new stacked cache from a
     prefill is stacked back to (L, ...) leaves.  Returns the residual
     stream (f32 unrounded after a single block, bf16 after a stacked
-    segment) and the caches."""
+    segment), the caches and the blocks' summed aux loss."""
     new_caches: List[Any] = []
+    aux_total = torch.zeros((), device=x.device)
     for seg_idx, (start, length, scanned) in enumerate(stack_plan(cfg)):
         seg_params = params["segments"][seg_idx]
         seg_cache = caches[seg_idx] if caches is not None else None
         kw = dict(cache_pos=cache_pos, make_cache=make_cache,
                   cache_len=cache_len, page_table=page_table)
         if not scanned:
-            x, nc = apply_block(seg_params, x, cfg, start, cache=seg_cache,
-                                **kw)
+            x, nc, aux = apply_block(seg_params, x, cfg, start,
+                                     cache=seg_cache, **kw)
+            aux_total = aux_total + aux
             new_caches.append(nc)
             continue
         layer_caches = []
@@ -115,8 +124,9 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             bp = tree_map(lambda a, li=li: a[li], seg_params)
             lc = (tree_map(lambda a, li=li: a[li], seg_cache)
                   if seg_cache is not None else None)
-            x, nc = apply_block(bp, x, cfg, start, cache=lc, **kw)
+            x, nc, aux = apply_block(bp, x, cfg, start, cache=lc, **kw)
             x = x.to(torch.bfloat16)        # the scan carry is bf16
+            aux_total = aux_total + aux
             layer_caches.append(nc)
         if seg_cache is not None:
             new_caches.append(seg_cache)    # pools were written in place
@@ -126,5 +136,5 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             new_caches.append(None)
     if all(c is None for c in new_caches):
-        return x, None
-    return x, new_caches
+        return x, None, aux_total
+    return x, new_caches, aux_total

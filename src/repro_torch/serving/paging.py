@@ -364,12 +364,21 @@ def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
                    dtype=torch.bfloat16, device="cuda"):
     """Page-pool cache tree: the prefill cache layout with the batch axis
     reinterpreted as the page axis; stacked segments get (L, P, ...)
-    leaves.  int8 configs hold codes plus per-(token, head) f32 scales."""
+    leaves.  int8 GQA configs hold codes plus per-(token, head) f32 scales;
+    MLA configs hold latent pools {c_kv (P, page, kv_lora_rank), k_rope
+    (P, page, rope)} in `dtype`, int8 or not, as the reference does."""
     dev = resolve_device(device)
     int8 = cfg.kv_cache_dtype == "int8"
     caches = []
     for _, length, scanned in stack_plan(cfg):
         lead = (length,) if scanned else ()
+        if cfg.attn_type == "mla":
+            caches.append({"attn": {
+                name: torch.zeros(lead + (n_pages, page_size, width),
+                                  dtype=dtype, device=dev)
+                for name, width in (("c_kv", cfg.kv_lora_rank),
+                                    ("k_rope", cfg.qk_rope_dim))}})
+            continue
         shape = lead + (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
         kv_dt = torch.int8 if int8 else dtype
         entry = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
@@ -402,12 +411,13 @@ def page_read(cfg: ModelConfig, one, pool, block: int, page: int) -> None:
     (the reference's `_cached_page_read`).  bf16 pools copy bit for bit;
     int8 pools dequantize the page's codes with its per-(token, head)
     scales into the raw staging K/V, so a reloaded prefix carries the
-    quantization error decode attends after install."""
-    int8 = cfg.kv_cache_dtype == "int8"
+    quantization error decode attends after install.  MLA latent pools
+    copy every leaf bit for bit."""
+    int8 = cfg.kv_cache_dtype == "int8" and cfg.attn_type != "mla"
     for seg_one, seg_pool, (_, _, scanned) in zip(one, pool,
                                                   stack_plan(cfg)):
         po, pa = seg_one["attn"], seg_pool["attn"]
-        for f in ("k", "v"):
+        for f in po:
             if scanned:   # pool (L, P, ps, ...), staging (L, 1, Lbuf, ...)
                 src, dst = pa[f][:, page], po[f][:, 0]
                 scale = pa[f + "_scale"][:, page] if int8 else None
@@ -416,8 +426,9 @@ def page_read(cfg: ModelConfig, one, pool, block: int, page: int) -> None:
                 scale = pa[f + "_scale"][page] if int8 else None
             if int8:
                 src = _kv_dequant(src, scale, dst.dtype)
-            ps = src.shape[-3]
-            dst[..., block * ps:(block + 1) * ps, :, :] = src
+            ax = 1 if scanned else 0      # the page's token axis
+            ps = src.shape[ax]
+            dst.narrow(ax, block * ps, ps).copy_(src)
 
 
 def page_copy(cfg: ModelConfig, pool, src: int, dst: int) -> None:

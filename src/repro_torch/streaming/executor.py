@@ -277,7 +277,7 @@ class StreamingExecutor:
             torch.cuda.current_stream(self.device).wait_event(
                 self._ready[layer])
         bp = self._block_params(layer, self.slots[s][1])
-        y, _ = apply_block(bp, x, self.cfg, layer)
+        y, _, _ = apply_block(bp, x, self.cfg, layer)
         return y.to(torch.bfloat16)    # each layer's output is a bf16 array
 
     def forward(self, batch: Dict[str, Any], prefetch: int = 1

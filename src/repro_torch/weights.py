@@ -8,7 +8,10 @@ leaves of scanned segments that `stack_plan` gives — as torch tensors.
 Matrices and the embedding table are stored in bf16: every use in the
 reference casts them to the bf16 activation dtype first, so the values the
 model computes with are identical.  Norm scales stay f32, as RMSNorm
-computes in f32.  At gemma-7b's full width that is 17 GB instead of 34.
+computes in f32, and so do the leaves some use reads in f32
+(`nn.model.F32_LEAVES`: the MoE router, MLA's W_uk and W_uv, which the
+absorbed decode folds in f32).  At gemma-7b's full width that is 17 GB
+instead of 34.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.model import F32_LEAVES
 from repro_torch.nn.transformer import stack_plan
 
 
@@ -36,7 +40,8 @@ def params_from_reference(np_params: Any, cfg: ModelConfig,
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v, key) for v in node]
-        dtype = torch.float32 if key == "scale" else torch.bfloat16
+        dtype = (torch.float32 if key == "scale" or key in F32_LEAVES
+                 else torch.bfloat16)
         return torch.from_numpy(np.array(node)).to(device=dev, dtype=dtype)
 
     return walk(np_params, None)
