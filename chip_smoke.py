@@ -14,10 +14,12 @@ Phases (any failure exits non-zero before the last line):
      path gives it and at the shapes its design finds hard (paged: stale
      garbage past every row's position, G 1 to 16, head dims 8 to 256,
      rows of 8,192 tokens, timed cold, phase 8's page views of contiguous
-     caches, phase 9's tables with retired pages skipped; flash: every native head dim and
-     the zero-padded ones, GQA up to G 16, ragged, causal and full, S 512
-     and 1000, the streaming B 4 x S 512; the f32 attention kernels
-     against plain versions whose products stay in full f32, paged at 3e-4
+     caches, phase 9's tables with retired pages skipped, hymba-1.5b's G 5
+     D 64 over phase 11's rows; flash: every native head dim and the
+     zero-padded ones, GQA up to G 16, ragged, causal and full, S 512 and
+     1000, the streaming B 4 x S 512, hymba-1.5b's S 1,536 H 25 Hkv 5;
+     the f32 attention kernels against plain versions whose products
+     stay in full f32, paged at 3e-4
      (every untimed shape above, the long tables and their split plans;
      the serve run's shape, G 4 and G 16 timed), flash at 3e-5, ten times
      tighter, on inputs where one TF32 pass is shown to miss it;
@@ -103,7 +105,25 @@ Phases (any failure exits non-zero before the last line):
      versions, the routing pinned on the MoE model) on minicpm-2b at
      full depth and qwen3-32b, yi-34b and qwen3-moe-235b-a22b at full
      width and 8, 8 and 2 layers, each freed before the next;
- 11. print the `kernels` JSON line, then the result line.
+ 11. the recurrent families at full width: hymba-1.5b (all 32 layers, SWA
+     or global attention beside Mamba in every block, weights drawn on the
+     card) serves phase 3's requests and one prompt of 1,536 tokens
+     through the slot engine (8 rows of 2,048): every request inside the
+     vocab, 3 flash launches a prefill and 3 paged launches a decode batch
+     (the global layers; the SWA layers take the masked softmax, banded
+     past 1,024 tokens), every kernel call of the long prompt's prefill
+     and one decode step within KERNEL_TOL of its plain version on its
+     inputs, and their logits against the plain versions' within the
+     larger of LOGIT_TOL and twice the noise floor the run measures (the
+     plain versions moved by one ulp where kernel and plain part), the
+     paged arena's refusal word for word, the default mode (every step
+     against the plain versions), a decode step profiled with the Mamba
+     branches' share and the long prompt's prefill wall with the time
+     inside Mamba's scan;
+     then xlstm-350m (all 24 layers) through the default mode and the slot
+     engine with no kernel launched, and the engine's refusal of chunked
+     prefill for its mLSTM layers;
+ 12. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -154,8 +174,9 @@ L2_FLUSH_BYTES = 256 << 20     # read between cold timed calls: 5x the L2
 # paged decode, timed: gemma-7b's heads over a 1,024-token table
 # (PAGED_MAIN), a GQA shape, qwen3-32b's, qwen3-moe-235b-a22b's, yi-34b's
 # and minicpm-2b's full-width decode heads, rows long enough that the
-# split is what feeds the SMs, and the serve run's table (34 pages, rows
-# at 40-543 tokens)
+# split is what feeds the SMs, the serve run's table (34 pages, rows
+# at 40-543 tokens) and hymba-1.5b's global layers over phase 11's slot
+# rows (2,048 tokens seen as 128 pages of 16, one row past the long prompt)
 PAGED_MAIN = "B8 Hkv16 G1 D256 page16 T64"
 PAGED_TIMED = {
     PAGED_MAIN: dict(B=8, H=16, Hkv=16, D=256, page=16, T=64, seed=1),
@@ -175,6 +196,9 @@ PAGED_TIMED = {
     "gemma-7b serve-like B8 Hkv16 G1 D256 page16 T34": dict(
         B=8, H=16, Hkv=16, D=256, page=16, T=34, seed=9,
         pos_list=[40, 120, 200, 290, 370, 450, 520, 543]),
+    "hymba-1.5b B8 H25 Hkv5 G5 D64 page16 T128": dict(
+        B=8, H=25, Hkv=5, D=64, page=16, T=128, seed=15,
+        pos_list=[40, 120, 250, 380, 450, 520, 540, 1551]),
 }
 # paged decode, untimed: head dims off the tensor cores' 16-column step and
 # group sizes that are not powers of two, (D, (H, Hkv), page, T)
@@ -1702,6 +1726,18 @@ def greedy_vs_plain(torch, cfg, params, toks):
             (free_err, routing_flips(k_picks, p_picks)))
 
 
+def kernel_layers(cfg):
+    """(layers whose monolithic prefill launches the flash kernel, layers
+    whose slot decode launches the paged kernel) in `cfg`'s stack: causal
+    attention with no window and no logit softcap; MLA decodes with no
+    kernel, and mLSTM / sLSTM layers have no attention."""
+    from repro_torch.nn.transformer import layer_kind
+    flash = sum(1 for i in range(cfg.n_layers)
+                if layer_kind(cfg, i) in ("attn", "hybrid")
+                and cfg.window_for_layer(i) <= 0 and cfg.logit_softcap <= 0)
+    return flash, 0 if cfg.attn_type == "mla" else flash
+
+
 def default_mode(torch, cfg, params):
     """The launcher without a mode flag (`serve.run_greedy`, the function
     its CLI calls) on `params`: one B x S prefill, gen - 1 greedy decode
@@ -1720,8 +1756,9 @@ def default_mode(torch, cfg, params):
         toks, t_prefill, t_decode = serve.run_greedy(args, params)
     launches = {"paged_attention": paged_attention.launches,
                 "flash_attention": flash_attention.launches}
-    want = {"paged_attention": cfg.n_layers * (GREEDY["gen"] - 1),
-            "flash_attention": cfg.n_layers}
+    flash_layers, paged_layers = kernel_layers(cfg)
+    want = {"paged_attention": paged_layers * (GREEDY["gen"] - 1),
+            "flash_attention": flash_layers}
     if launches != want or toks.shape != (GREEDY["batch"], GREEDY["gen"]) \
             or not ((0 <= toks) & (toks < cfg.vocab_padded)).all():
         raise AssertionError(f"default mode: launches {launches}, want "
@@ -2329,21 +2366,23 @@ def param_bytes(params):
 
 
 def family_serve(torch, cfg, params, requests, label, chunked=False,
-                 **model_kw):
-    """`requests` through a one-tenant engine of `cfg` (8 rows; the slot
-    layout unless `model_kw` says otherwise; with `chunked`, chunks of
-    CHUNK under a CHUNK_BUDGET-token budget), weights installed before the
-    run, launch counts set to 0 just before it: every request finishes
-    inside the vocab, flash launches n_layers a monolithic prefill (0
-    chunked) and paged launches 0 (MLA decodes with no kernel).  Returns
-    (tokens by rid, launches, tokens per second)."""
+                 max_seq=SLOT_MAX_SEQ, **model_kw):
+    """`requests` through a one-tenant engine of `cfg` (8 rows of
+    `max_seq`; the slot layout unless `model_kw` says otherwise; with
+    `chunked`, chunks of CHUNK under a CHUNK_BUDGET-token budget), weights
+    installed before the run, launch counts set to 0 just before it: every
+    request finishes inside the vocab, flash launches once a monolithic
+    prefill in each layer that takes it (`kernel_layers`; 0 chunked) and
+    paged once a decode batch in each layer that takes it (MLA decodes
+    with no kernel).  Returns (tokens by rid, launches, tokens per
+    second)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.serving import (EngineModel, SchedulerConfig,
                                      ServingEngine)
     eng = ServingEngine(
         [EngineModel(cfg.name, params, cfg, kv_slots=8,
-                     max_seq=SLOT_MAX_SEQ, **model_kw)],
+                     max_seq=max_seq, **model_kw)],
         sched=SchedulerConfig(max_prefill_per_step=4,
                               prefill_token_budget=(CHUNK_BUDGET if chunked
                                                     else None)),
@@ -2368,8 +2407,9 @@ def family_serve(torch, cfg, params, requests, label, chunked=False,
                              "the vocab")
     prefills = sum(st.n_prefills for st in eng.metrics.steps)
     decode_batches = sum(1 for st in eng.metrics.steps if st.n_decoded)
-    want = {"paged_attention": 0,
-            "flash_attention": 0 if chunked else cfg.n_layers * prefills}
+    flash_layers, paged_layers = kernel_layers(cfg)
+    want = {"paged_attention": paged_layers * decode_batches,
+            "flash_attention": 0 if chunked else flash_layers * prefills}
     if launches != want or prefills != len(requests):
         raise AssertionError(f"{label}: launches {launches}, want {want} "
                              f"({prefills} prefills)")
@@ -2729,6 +2769,334 @@ def families(torch):
     return launches, decode
 
 
+# ------------------------------------------------------------ phase 11
+HYBRID_ARCH = "hymba-1.5b"
+XLSTM_ARCH = "xlstm-350m"
+LONG_PROMPT = 1536     # > 1024: the SWA layers band, the global ones' flash
+HYBRID_MAX_SEQ = 2048  # the slot arena's rows: the long prompt and its tokens
+MAMBA_SPAN = "mamba"   # profiler range around each Mamba branch
+# hymba's logits amplify rounding more than gemma-7b's, for which LOGIT_TOL
+# was set: on the card the plain versions, moved by one bf16 ulp in the
+# share of outputs where kernel and plain part (a fifth of them), move the
+# long prompt's logits by ~5% of their scale.  So phase 11 measures that
+# floor in its own run and holds the kernels' logits to the larger of
+# LOGIT_TOL and NOISE_MARGIN x the floor; a wrong kernel (a missed page or
+# mask) moves them by their scale
+NOISE_MARGIN = 2
+# the paged arena's refusal, word for word as the reference words it
+PAGED_REFUSAL = ("paged KV needs a pure-attention stack; layer 0 of {name} "
+                 "is {kind!r} (use kv_layout='slot')")
+
+
+def hybrid_requests(vocab):
+    """Phase 3's requests, then one prompt of LONG_PROMPT tokens."""
+    rng = np.random.default_rng(11)
+    return phase3_requests(vocab) + [
+        (rng.integers(1, vocab, LONG_PROMPT).tolist(), 16, {})]
+
+
+def ulp_noise(torch, out, share, gen):
+    """`out` (bf16) moved by one ulp, up or down, in a random `share` of
+    its elements: rounding noise of a kernel's size."""
+    f = out.float()
+    ulp = torch.where(f == 0, torch.zeros_like(f),
+                      torch.exp2(torch.floor(torch.log2(f.abs())) - 7))
+    pick = torch.rand(f.shape, generator=gen, device=f.device) < share
+    sign = torch.where(torch.rand(f.shape, generator=gen, device=f.device)
+                       < 0.5, -1.0, 1.0)
+    return (f + pick * sign * ulp).to(out.dtype)
+
+
+def attention_wrappers(torch, records=None, noise=None, gen=None):
+    """A patch of both attention wrappers.  With `records`: each call runs
+    the kernel and its plain version on the same inputs and appends (name,
+    max abs err, share of output elements that differ); the kernel's
+    output goes on.  With `noise` ({name: share}): the plain versions, each
+    output moved by one ulp in that share of its elements (`ulp_noise`)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    from repro_torch.nn import attention as attn_mod
+
+    def wrap(name, kernel, plain):
+        def call(*a, **kw):
+            ref = plain(*a, **kw)
+            if noise is not None:
+                return ulp_noise(torch, ref, noise.get(name, 0.0), gen)
+            out = kernel(*a, **kw)
+            records.append((name, (out.float() - ref.float()).abs().max()
+                            .item(), (out != ref).float().mean().item()))
+            return out
+        return call
+    return mock.patch.multiple(
+        attn_mod,
+        paged_attention=wrap("paged_attention", paged_attention,
+                             paged_attention_plain),
+        flash_attention=wrap(
+            "flash_attention",
+            lambda q, k, v, causal: flash_attention(q, k, v, causal=causal),
+            lambda q, k, v, causal: flash_attention_plain(q, k, v, causal)))
+
+
+def state_logits_vs_plain(torch, cfg, params, prompt):
+    """`prompt` prefilled into a one-slot arena of HYBRID_MAX_SEQ, its
+    prefill logits and one slot decode step (the decode three times on the
+    same saved cache: attention rings and recurrent state) run three ways:
+    through the kernels, each call also held against its plain version on
+    the same inputs (`attention_wrappers` records); through the plain
+    versions; and through the plain versions moved by one ulp in the share
+    of elements where the kernel and plain version part (the noise floor
+    of that rounding in this model).  Returns ({"prefill" | "decode":
+    (kernels vs plain, plain vs noisy plain)}, logit scale, same greedy
+    picks, the per-call records)."""
+    from repro_torch.launch.steps import cached_serve_step, prefill_step
+    from repro_torch.serving import KVArena
+    from repro_torch.tree import tree_leaves
+    tokens = torch.tensor([prompt], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(LONG_PROMPT)
+    records = []
+
+    def share(name):
+        return statistics.mean(r[2] for r in records if r[0] == name)
+    with attention_wrappers(torch, records):
+        k_logits, one = prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+    with plain_attention():
+        p_logits, _ = prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+    with attention_wrappers(torch, noise={"flash_attention":
+                                          share("flash_attention")},
+                            gen=gen):
+        n_logits, _ = prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+    arena = KVArena(cfg, 1, HYBRID_MAX_SEQ, device="cuda")
+    arena.install(arena.alloc(0), one,
+                  int(k_logits[0, :cfg.vocab].argmax()), len(prompt))
+    saved = [t.clone() for t in tree_leaves(arena.caches)]
+    tok, pos = arena.decode_inputs()
+    step = cached_serve_step(cfg)
+
+    def decode(patch):
+        for t, s_ in zip(tree_leaves(arena.caches), saved):
+            t.copy_(s_)
+        with patch:
+            return step(params, tok, arena.caches, pos)[0]
+    k_dec = decode(attention_wrappers(torch, records))
+    p_dec = decode(plain_attention())
+    n_dec = decode(attention_wrappers(
+        torch, noise={"paged_attention": share("paged_attention")},
+        gen=gen))
+    errs, scale, agree = {}, 0.0, True
+    for name, (k, p, n) in (("prefill", (k_logits, p_logits, n_logits)),
+                            ("decode", (k_dec, p_dec, n_dec))):
+        k32, p32, n32 = (x.float()[:, :cfg.vocab] for x in (k, p, n))
+        if not (torch.isfinite(k32).all() and k32.shape == (1, cfg.vocab)):
+            raise AssertionError(f"{cfg.name} logits not finite / wrong "
+                                 "shape")
+        errs[name] = ((k32 - p32).abs().max().item(),
+                      (p32 - n32).abs().max().item())
+        scale = max(scale, p32.abs().max().item())
+        agree = agree and bool(k32.argmax(-1) == p32.argmax(-1))
+    del arena, saved
+    torch.cuda.empty_cache()
+    return errs, scale, agree, records
+
+
+def mamba_timed(torch):
+    """A patch that times every Mamba branch on the host (synchronized on
+    both sides) into the returned list, in seconds."""
+    from repro_torch.nn import transformer as tf_mod
+    spans = []
+    orig = tf_mod.mamba
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+    return mock.patch.object(tf_mod, "mamba", timed), spans
+
+
+def hybrid_profile(torch, cfg, params, requests, long_prompt):
+    """The first 8 prompts prefilled into a slot arena of HYBRID_MAX_SEQ,
+    its batched decode step profiled (wall against device time, the Mamba
+    branches' share of device time through a profiler range around each),
+    then the long prompt's monolithic prefill wall, with the host time
+    spent inside the Mamba branches (its per-token scan loop).  Returns a
+    dict of the numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.steps import cached_serve_step, prefill_step
+    from repro_torch.nn import transformer as tf_mod
+    from repro_torch.serving import KVArena
+    arena = KVArena(cfg, 8, HYBRID_MAX_SEQ, device="cuda")
+    for rid, (prompt, _, _) in enumerate(requests[:8]):
+        logits, one = prefill_step(params, torch.tensor([prompt],
+                                                        device="cuda"),
+                                   cfg, HYBRID_MAX_SEQ)
+        arena.install(arena.alloc(rid), one,
+                      int(logits[0, :cfg.vocab].argmax()), len(prompt))
+    tok, pos = arena.decode_inputs()
+    step = cached_serve_step(cfg)
+    weights = param_bytes(params)
+    wall_ms = profile_step(
+        torch, lambda: step(params, tok, arena.caches, pos), 5,
+        f"{cfg.name} slot decode step (8 rows, {cfg.n_layers} layers)",
+        weights / HBM_BYTES_PER_S * 1e3)
+    orig = tf_mod.mamba
+
+    def spanned(*a, **k):
+        with record_function(MAMBA_SPAN):
+            return orig(*a, **k)
+    with mock.patch.object(tf_mod, "mamba", spanned), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step(params, tok, arena.caches, pos)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    device_ms = sum(e.device_time_total for e in averages
+                    if e.device_type == DeviceType.CUDA
+                    and e.key != MAMBA_SPAN) / 1e3 / 5
+    mamba_ms = max((e.device_time_total for e in averages
+                    if e.key == MAMBA_SPAN
+                    and e.device_type == DeviceType.CPU),
+                   default=0) / 1e3 / 5
+    del arena
+    torch.cuda.empty_cache()
+    tokens = torch.tensor([long_prompt], device="cuda")
+    prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    patch, spans = mamba_timed(torch)
+    with patch:
+        t0 = time.perf_counter()
+        prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(decode_wall_ms=wall_ms, decode_device_ms=device_ms,
+               decode_mamba_device_ms=mamba_ms,
+               decode_weight_bound_ms=weights / HBM_BYTES_PER_S * 1e3,
+               decode_tok_s=8 / (wall_ms / 1e3),
+               long_prefill_ms=prefill_ms,
+               long_prefill_mamba_ms=sum(spans) * 1e3,
+               long_prefill_synced_ms=timed_ms)
+    share = (f"{mamba_ms / device_ms:.1%}" if mamba_ms and device_ms
+             else "not measured")
+    log(f"{cfg.name} decode step: Mamba branches {mamba_ms:.2f} ms of "
+        f"{device_ms:.2f} ms device time ({share}); {LONG_PROMPT}-token "
+        f"prefill {prefill_ms:.1f} ms wall, of which the Mamba branches "
+        f"{out['long_prefill_mamba_ms']:.1f} ms ({len(spans)} calls, "
+        f"synchronized each; that run {timed_ms:.1f} ms)")
+    return out
+
+
+def recurrent(torch):
+    """Phase 11: hymba-1.5b whole at full width (32 layers, weights drawn
+    on the card) through the slot engine with phase 3's requests and one
+    LONG_PROMPT prompt, its long prompt's prefill and a decode step
+    against the plain versions, the paged arena's refusal, the default
+    mode and a profiled decode step and long prefill; then xlstm-350m
+    whole (24 layers) through the default mode and the slot engine, no
+    kernel launched, and the engine's refusal of chunked prefill.  Returns
+    ({config: launches}, hymba's profile numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import init_params
+    from repro_torch.serving import (EngineModel, PagedKVArena,
+                                     ServingEngine)
+    t_phase = time.perf_counter()
+    launches = {}
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"init_params {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {param_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s; kernel layers (flash, paged) "
+        f"{kernel_layers(cfg)}")
+    requests = hybrid_requests(cfg.vocab)
+    _, slot_launches, tok_s = family_serve(
+        torch, cfg, params, requests,
+        f"{cfg.name} slot engine ({len(requests)} requests, one of "
+        f"{LONG_PROMPT} tokens)", max_seq=HYBRID_MAX_SEQ)
+    errs, scale, agree, records = state_logits_vs_plain(
+        torch, cfg, params, requests[-1][0])
+    for name in ("flash_attention", "paged_attention"):
+        calls = [r for r in records if r[0] == name]
+        differ = statistics.mean(r[2] for r in calls)
+        log(f"{cfg.name} {name} on the long prompt's path, kernel vs plain "
+            f"on each call's inputs: {len(calls)} calls, max abs err "
+            f"{max(r[1] for r in calls):.4g} (KERNEL_TOL {KERNEL_TOL}), "
+            f"output elements that differ {differ:.2%}")
+        if not all(r[1] <= KERNEL_TOL for r in calls):
+            raise AssertionError(f"{cfg.name}: {name} disagrees with its "
+                                 "plain version on the path's inputs")
+    for name, (err, floor) in errs.items():
+        tol = max(LOGIT_TOL * scale, NOISE_MARGIN * floor)
+        log(f"{cfg.name} {LONG_PROMPT}-token prompt {name} logits, kernels "
+            f"vs plain: max abs err {err:.4g}; plain vs plain moved by one "
+            f"ulp in the share of elements where kernel and plain part (the "
+            f"noise floor): {floor:.4g}; logit scale {scale:.4g}; tolerance "
+            f"{tol:.4g} (the larger of {LOGIT_TOL:.0%} of the scale and "
+            f"{NOISE_MARGIN}x the floor)")
+        if not err <= tol:
+            raise AssertionError(f"{cfg.name} {name} logits: kernels and "
+                                 "plain versions differ beyond the "
+                                 "tolerance")
+    log(f"{cfg.name}: same greedy picks, kernels vs plain: {agree}")
+    for c in (cfg, get_config(XLSTM_ARCH)):
+        try:
+            PagedKVArena(c, 8, 64, 16, device="cuda")
+        except ValueError as e:
+            from repro_torch.nn.transformer import layer_kind
+            want = PAGED_REFUSAL.format(name=c.name, kind=layer_kind(c, 0))
+            if str(e) != want:
+                raise AssertionError(f"paged refusal {e!r}, want {want!r}")
+        else:
+            raise AssertionError(f"the paged arena took {c.name}")
+    log(f"paged arena refuses {HYBRID_ARCH} and {XLSTM_ARCH} with the "
+        f"reference's message")
+    launches[HYBRID_ARCH] = {"slot": slot_launches,
+                             "default_mode": default_mode(torch, cfg,
+                                                          params)}
+    profile = hybrid_profile(torch, cfg, params, requests, requests[-1][0])
+    profile["serve_tok_s"] = tok_s
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{cfg.name}: {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"init_params {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {param_bytes(params) / 1e9:.2f} GB")
+    launches[XLSTM_ARCH] = {"default_mode": default_mode(torch, cfg,
+                                                         params)}
+    _, launches[XLSTM_ARCH]["slot"], _ = family_serve(
+        torch, cfg, params, phase3_requests(cfg.vocab),
+        f"{cfg.name} slot engine")
+    try:
+        ServingEngine([EngineModel(cfg.name, params, cfg)],
+                      prefill_chunk=CHUNK, device="cuda")
+    except ValueError as e:
+        if "mLSTM" not in str(e):
+            raise
+        log(f"{cfg.name}: the engine refuses prefill_chunk {CHUNK}: {e}")
+    else:
+        raise AssertionError(f"{cfg.name}: the engine took chunked prefill")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{cfg.name}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 11 (hybrid and xLSTM): {time.perf_counter() - t_phase:.1f} s")
+    return launches, profile
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2829,6 +3197,14 @@ def main() -> int:
         log(f"flash_attention B{B} S{S} H16 D256 causal: err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
             f"kernel/sdpa {ms / lib_ms:.2f}), bound {b:.4f} ms by {by}")
+    # hymba-1.5b's global layers prefilling phase 11's long prompt
+    hymba = check_flash(torch, S=LONG_PROMPT, H=25, D=64, seed=LONG_PROMPT,
+                        Hkv=5)
+    err, ms, plain_ms, lib_ms, (b, by) = hymba
+    log(f"flash_attention B1 S{LONG_PROMPT} H25 Hkv5 (G5) D64 causal "
+        f"(hymba-1.5b): err {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, kernel/sdpa {ms / lib_ms:.2f}), bound "
+        f"{b:.4f} ms by {by}, kernel/bound {ms / b:.2f}")
     mla = check_flash_mla(torch)
     err, ms, plain_ms, lib_ms, (b, by) = mla
     log(f"flash_attention B1 S512 H16 D192 (MLA, V 128 zero-padded to 192) "
@@ -3002,13 +3378,22 @@ def main() -> int:
     fam_launches, fam_decode = families(torch)
     log(f"phase 10 {MLA_ARCH} decode: {json.dumps(fam_decode)}")
 
+    # phase 11: hymba's attention beside Mamba, and xLSTM, at full width
+    rec_launches, rec_profile = recurrent(torch)
+    log(f"phase 11 {HYBRID_ARCH} profile: {json.dumps(rec_profile)}")
+
     def family_fields(name):
         return {"families_launches": {
             arch: ({run: v[name] for run, v in runs.items()}
                    if arch == MLA_ARCH else runs[name])
             for arch, runs in fam_launches.items()}}
 
-    # phase 11: report
+    def recurrent_fields(name):
+        return {"recurrent_launches": {
+            arch: {run: v[name] for run, v in runs.items()}
+            for arch, runs in rec_launches.items()}}
+
+    # phase 12: report
     def planes_fields(name):
         return {arm: launches[name]
                 for arm, launches in zip(("off", "on"), plane_launches)}
@@ -3032,13 +3417,14 @@ def main() -> int:
          "f32_cold_ms_by_shape": {k: v[1] for k, v in paged32.items()},
          "cold_ms_by_shape": {k: v[1] for k, v in paged.items()},
          "bound_ms_by_shape": {k: v[4][0] for k, v in paged.items()},
-         **family_fields("paged_attention")},
+         **family_fields("paged_attention"),
+         **recurrent_fields("paged_attention")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
          "launches": launches["flash_attention"],
-         "max_abs_err": max(f[0] for f in flash.values()),
+         "max_abs_err": max([f[0] for f in flash.values()] + [hymba[0]]),
          "ms": flash[1, 512][1], "plain_ms": flash[1, 512][2],
          "bound_ms": flash[1, 512][4][0], "bound_by": flash[1, 512][4][1],
          "library_ms": flash[1, 512][3],
@@ -3051,6 +3437,10 @@ def main() -> int:
          "mla_max_abs_err": mla[0], "mla_ms": mla[1], "mla_plain_ms": mla[2],
          "mla_library_ms": mla[3], "mla_bound_ms": mla[4][0],
          "mla_bound_by": mla[4][1], **family_fields("flash_attention"),
+         "hymba_max_abs_err": hymba[0], "hymba_ms": hymba[1],
+         "hymba_plain_ms": hymba[2], "hymba_library_ms": hymba[3],
+         "hymba_bound_ms": hymba[4][0], "hymba_bound_by": hymba[4][1],
+         **recurrent_fields("flash_attention"),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
          "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},
         {"name": "delta_apply", "route": "cuda",

@@ -3,8 +3,10 @@
 Each module exposes ``full()`` (the exact published config) and ``smoke()``
 (a reduced same-family config for CPU tests), as in the JAX package.  The
 registry holds the families the port serves so far: the dense GQA
-decoders (gemma-7b, minicpm-2b, yi-34b, qwen3-32b) and the MoE ones
-(deepseek-v2-lite-16b with MLA, qwen3-moe-235b-a22b with GQA).
+decoders (gemma-7b, minicpm-2b, yi-34b, qwen3-32b), the MoE ones
+(deepseek-v2-lite-16b with MLA, qwen3-moe-235b-a22b with GQA) and the
+recurrent ones (hymba-1.5b, SWA attention beside mamba in every block;
+xlstm-350m, mLSTM and sLSTM blocks).
 """
 from __future__ import annotations
 
@@ -13,9 +15,11 @@ from typing import Tuple
 from repro_torch.configs import (
     deepseek_v2_lite_16b,
     gemma_7b,
+    hymba_1_5b,
     minicpm_2b,
     qwen3_32b,
     qwen3_moe_235b_a22b,
+    xlstm_350m,
     yi_34b,
 )
 from repro_torch.nn.config import ModelConfig
@@ -27,6 +31,8 @@ _MODULES = {
     "qwen3-32b": qwen3_32b,
     "yi-34b": yi_34b,
     "gemma-7b": gemma_7b,
+    "hymba-1.5b": hymba_1_5b,
+    "xlstm-350m": xlstm_350m,
 }
 
 ARCHS: Tuple[str, ...] = tuple(_MODULES)

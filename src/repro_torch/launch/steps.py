@@ -120,11 +120,14 @@ def _make_stage_finalize(cfg: ModelConfig, target_len: int,
     plan = stack_plan(cfg)
 
     def finalize(staging, true_len: int):
+        # only attention entries have a length: a pure recurrent segment
+        # (mLSTM, sLSTM) passes through, and a hybrid one keeps its Mamba
+        # state as it is
         return [{**seg, "attn": _finalize_attn_entry(
                     cfg, seg["attn"], axis=2 if scanned else 1,
                     window=cfg.window_for_layer(start),
                     target_len=target_len, true_len=int(true_len),
-                    ring_windows=ring_windows)}
+                    ring_windows=ring_windows)} if "attn" in seg else seg
                 for seg, (start, _, scanned) in zip(staging, plan)]
     return finalize
 

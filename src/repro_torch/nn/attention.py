@@ -26,11 +26,13 @@ B·L/p pages of p tokens (p the largest power of two up to 16 dividing L)
 under an identity page table, with no copy, so the kernel walks only each
 row's live tokens.  Routes the kernels do not take are decided by the
 config, as the reference decides them: sliding-window, logit-softcap and
-non-causal prefills run the plain masked softmax (`_softmax_attend`), and
-so do windowed (ring) or softcapped slot decode and windowed or
-softcapped paged decode (`_paged_append_gqa` gathers the row's pages
-first); int8 caches are dequantized before the paged kernel.  gemma-7b
-takes none of those routes.
+non-causal prefills run the plain masked softmax (`_softmax_attend`) up
+to 1,024 tokens and `chunked_attention` past them (a windowed layer in
+bands of window + q_chunk keys, `_banded_attention`); windowed (ring) or
+softcapped slot decode and windowed or softcapped paged decode run the
+masked softmax too (`_paged_append_gqa` gathers the row's pages first);
+int8 caches are dequantized before the paged kernel.  gemma-7b takes
+none of those routes; hymba's sliding-window layers take them.
 
 All paths accumulate in f32 and cast the result once to the activation
 dtype.  Caches are updated in place (the reference returns new caches
@@ -43,6 +45,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -82,6 +85,92 @@ def _softmax_attend(q, k, v, mask, softcap: float) -> torch.Tensor:
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+
+
+# ============================================================ chunked path
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      prefix_len: int = 0, softcap: float = 0.0,
+                      q_chunk: int = 512, kv_chunk: int = 1024
+                      ) -> torch.Tensor:
+    """The reference's bounded-memory prefill attention for S > 1024 on
+    the routes the flash kernel does not take: a windowed layer attends
+    through `_banded_attention`; otherwise (a logit softcap, a non-causal
+    or prefix mask) each `q_chunk` of queries runs an f32 online softmax
+    over `kv_chunk` blocks of keys, in the reference's block order.
+    q (B, Sq, Hkv, G, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hkv, G, D) f32."""
+    if window > 0:
+        return _banded_attention(q, k, v, window=window, softcap=softcap,
+                                 q_chunk=q_chunk)
+    B, Sq, Hkv, G, D = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    nq, nk = -(-Sq // q_chunk), -(-Skv // kv_chunk)
+    qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, nq * q_chunk - Sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - Skv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - Skv))
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_blk = qp[:, qi * q_chunk:(qi + 1) * q_chunk].float()
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, Hkv, G, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, Hkv, G, q_chunk), device=dev)
+        acc = torch.zeros((B, Hkv, G, q_chunk, D), device=dev)
+        for kj in range(nk):
+            k_blk = kp[:, kj * kv_chunk:(kj + 1) * kv_chunk].float()
+            v_blk = vp[:, kj * kv_chunk:(kj + 1) * kv_chunk].float()
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            ok = _mask(qpos, kpos, causal=causal, window=0,
+                       prefix_len=prefix_len) & (kpos < Skv)[None, :]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, v_blk)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
+def _banded_attention(q, k, v, *, window: int, softcap: float,
+                      q_chunk: int) -> torch.Tensor:
+    """Sliding-window prefill attention (the reference's
+    `_banded_attention`): each `q_chunk` of queries attends a band of
+    `window + q_chunk` keys of K/V left-padded by `window`, with an f32
+    masked softmax per band — O(S·window), never an S×S mask."""
+    B, Sq, Hkv, G, D = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    nq = -(-Sq // q_chunk)
+    q_pad = nq * q_chunk - Sq
+    qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, q_pad))
+    band = window + q_chunk
+    kp = F.pad(k, (0, 0, 0, 0, window, q_pad))
+    vp = F.pad(v, (0, 0, 0, 0, window, q_pad))
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        start = qi * q_chunk    # the band: positions [start - w, start + qc)
+        k_blk = kp[:, start:start + band].float()
+        v_blk = vp[:, start:start + band].float()
+        qpos = start + torch.arange(q_chunk, device=dev)
+        kpos = start - window + torch.arange(band, device=dev)
+        ok = _mask(qpos, kpos, causal=True, window=window, prefix_len=0)
+        ok = ok & ((kpos >= 0) & (kpos < Skv))[None, :]
+        s = torch.einsum("bqhgd,bkhd->bhgqk",
+                         qp[:, start:start + q_chunk].float(), k_blk) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, v_blk))
+    return torch.cat(outs, dim=1)[:, :Sq]
 
 
 # ======================================================== int8 KV cache
@@ -210,10 +299,16 @@ def attention(
         if cfg.causal and layer_window <= 0 and cfg.logit_softcap <= 0:
             o = flash_attention(q.reshape(B, S, H, D), k, v, causal=True)
             o = o.reshape(B, S, Hkv, H // Hkv, D)
-        else:
+        elif S <= 1024:
             mask = _mask(positions, positions, causal=cfg.causal,
                          window=layer_window, prefix_len=0)
             o = _softmax_attend(q, k, v, mask, cfg.logit_softcap)
+        else:
+            o = chunked_attention(q, k, v, causal=cfg.causal,
+                                  window=layer_window if cfg.causal else 0,
+                                  softcap=cfg.logit_softcap,
+                                  q_chunk=cfg.attn_q_chunk,
+                                  kv_chunk=cfg.attn_kv_chunk)
         if make_cache:
             new_cache = _make_cache(k, v, cfg, layer_window, cache_len or S)
 

@@ -1,6 +1,7 @@
 """Top-level language model — PyTorch port of `repro.nn.model` for token
-LMs: embeddings → stack → norm → logits, plus the serving entry points:
-monolithic prefill, chunked prefill into a staging cache, and decode over
+LMs (attention, hybrid attention ∥ Mamba, and xLSTM stacks): embeddings
+→ stack → norm → logits, plus the serving entry points: monolithic
+prefill, chunked prefill into a staging cache, and decode over
 contiguous (slot) or paged caches.
 """
 from __future__ import annotations
@@ -14,6 +15,8 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import embed, rmsnorm, unembed
 from repro_torch.nn.moe import init_moe
+from repro_torch.nn.ssm import (init_mamba_cache, init_mlstm_cache,
+                                init_slstm_cache)
 from repro_torch.nn.transformer import apply_stack, layer_kind, stack_plan
 
 Params = Dict[str, Any]
@@ -21,8 +24,11 @@ Params = Dict[str, Any]
 
 # ------------------------------------------------------------------ init
 # leaves the model uses in f32 (the router's softmax, MLA's absorbed
-# decode); every other matrix is cast to the bf16 activations at each use
-F32_LEAVES = ("router", "w_uk", "w_uv")
+# decode, Mamba's dt bias and A, the mLSTM gate bias, the sLSTM recurrent
+# matrix and gate bias); every other matrix is cast to the bf16
+# activations at each use
+F32_LEAVES = ("router", "w_uk", "w_uv", "dt_bias", "A_log", "if_bias",
+              "r_gates", "gate_bias")
 
 
 def _attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -46,7 +52,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     norm scales 1.  Drawn from a `torch.Generator` seeded with `seed` on
     `device` (the draws differ from jax's); matrices are stored in bf16,
     norm scales and the `F32_LEAVES` in f32 (see `repro_torch.weights`).
-    Dense GQA (qk_norm too), MLA and MoE stacks are ported."""
+    Dense GQA (qk_norm too), MLA, MoE, hybrid (attention ∥ Mamba) and
+    xLSTM stacks are ported; only the token input mode."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -59,18 +66,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                       .mul_(scale))
         return out
 
-    for start, _, _ in stack_plan(cfg):
-        if layer_kind(cfg, start) != "attn" or cfg.input_mode != "tokens":
-            raise NotImplementedError(f"{cfg.name}: {cfg.family} stacks are "
-                                      "not ported yet")
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(f"{cfg.name}: input_mode "
+                                  f"{cfg.input_mode!r} is not ported yet")
     emb = {"table": draw((cfg.vocab_padded, cfg.d_model), 0.02,
                          torch.bfloat16)}
     if not cfg.tie_embeddings:
         emb["head"] = draw((cfg.d_model, cfg.vocab_padded),
                            1.0 / math.sqrt(cfg.d_model), torch.bfloat16)
-
-    def ones(*shape):
-        return torch.ones(shape, device=dev)
 
     segments: List[Params] = []
     for start, length, scanned in stack_plan(cfg):
@@ -79,17 +82,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         def normal(shape, scale, dtype=torch.bfloat16):
             return draw(lead + shape, scale, dtype)
 
+        def const(value, *shape):
+            return torch.full(lead + shape, float(value), device=dev)
+
+        kind = layer_kind(cfg, start)
+        if kind in ("mlstm", "slstm"):
+            cell = (_init_mlstm if kind == "mlstm" else _init_slstm)(
+                cfg, normal, const)
+            segments.append({"norm1": {"scale": const(1.0, cfg.d_model)},
+                             "cell": cell})
+            continue
         attn = {name: normal(shape, 1.0 / math.sqrt(shape[0]),
                              torch.float32 if name in F32_LEAVES
                              else torch.bfloat16)
                 for name, shape in _attn_shapes(cfg).items()}
         if cfg.attn_type == "mla":
-            attn["kv_norm"] = {"scale": ones(*lead, cfg.kv_lora_rank)}
+            attn["kv_norm"] = {"scale": const(1.0, cfg.kv_lora_rank)}
         elif cfg.qk_norm:
-            attn["q_norm"] = {"scale": ones(*lead, cfg.head_dim)}
-            attn["k_norm"] = {"scale": ones(*lead, cfg.head_dim)}
-        block = {"norm1": {"scale": ones(*lead, cfg.d_model)}, "attn": attn,
-                 "norm2": {"scale": ones(*lead, cfg.d_model)}}
+            attn["q_norm"] = {"scale": const(1.0, cfg.head_dim)}
+            attn["k_norm"] = {"scale": const(1.0, cfg.head_dim)}
+        block = {"norm1": {"scale": const(1.0, cfg.d_model)}, "attn": attn,
+                 "norm2": {"scale": const(1.0, cfg.d_model)}}
+        if kind == "hybrid":
+            block["mamba"] = _init_mamba(cfg, normal, const)
         if cfg.layer_is_moe[start]:
             block["moe"] = init_moe(cfg, normal)
         else:
@@ -101,6 +116,54 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         segments.append(block)
     return {"embedding": emb, "stack": {"segments": segments},
             "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)}}
+
+
+def _init_mamba(cfg: ModelConfig, normal, const) -> Params:
+    """Mamba's params (`repro.nn.ssm.init_mamba`): dt_bias 0, A_log =
+    log(1..N) per channel, D 1, conv N(0, 1)·0.1.  `normal(shape, scale,
+    dtype)` draws a leaf, `const(value, *shape)` fills an f32 one."""
+    d, N = cfg.d_model, cfg.ssm_state
+    di = cfg.ssm_expand * d
+    dt_rank = max(d // 16, 8)
+    a_log = const(0.0, di, N)
+    a_log += torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                    device=a_log.device))
+    return {"w_in": normal((d, 2 * di), 1.0 / math.sqrt(d)),
+            "conv": normal((cfg.ssm_conv_width, di), 0.1),
+            "w_xproj": normal((di, dt_rank + 2 * N), 1.0 / math.sqrt(di)),
+            "w_dt": normal((dt_rank, di), 1.0 / math.sqrt(dt_rank)),
+            "dt_bias": const(0.0, di), "A_log": a_log,
+            "D": const(1.0, di).to(torch.bfloat16),
+            "w_out": normal((di, d), 1.0 / math.sqrt(di))}
+
+
+def _init_mlstm(cfg: ModelConfig, normal, const) -> Params:
+    """mLSTM's params (`repro.nn.ssm.init_mlstm`): the input gate's bias
+    0, the forget gate's 3."""
+    d, H = cfg.d_model, cfg.ssm_heads
+    di = cfg.ssm_expand * d
+    s_d, s_di = 1.0 / math.sqrt(d), 1.0 / math.sqrt(di)
+    return {"w_in": normal((d, 2 * di), s_d),
+            "w_q": normal((di, di), s_di), "w_k": normal((di, di), s_di),
+            "w_v": normal((di, di), s_di), "w_if": normal((di, 2 * H), s_di),
+            "if_bias": torch.cat([const(0.0, H), const(3.0, H)], dim=-1),
+            "norm": {"scale": const(1.0, di)},
+            "w_out": normal((di, d), s_di)}
+
+
+def _init_slstm(cfg: ModelConfig, normal, const) -> Params:
+    """sLSTM's params (`repro.nn.ssm.init_slstm`): the recurrent matrix
+    N(0, 1)/sqrt(D) per head in f32, the gate bias 2 on the second
+    quarter."""
+    d, H = cfg.d_model, cfg.ssm_heads
+    D = d // H
+    return {"w_gates": normal((d, 4 * d), 1.0 / math.sqrt(d)),
+            "r_gates": normal((H, D, 4 * D), 1.0 / math.sqrt(D),
+                              torch.float32),
+            "gate_bias": torch.cat([const(0.0, d), const(2.0, d),
+                                    const(0.0, 2 * d)], dim=-1),
+            "norm": {"scale": const(1.0, d)},
+            "w_out": normal((d, d), 1.0 / math.sqrt(d))}
 
 
 # --------------------------------------------------------------- forward
@@ -150,28 +213,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     at page install, as the monolithic prefill quantizes after attending).
     MLA layers cache their latents, {c_kv (..., batch, cache_len,
     kv_lora_rank), k_rope (..., rope)} in ``dtype`` (the reference has no
-    int8 latent cache).  Attention stacks only: recurrent caches are not
-    ported."""
+    int8 latent cache).  A hybrid layer caches {"attn", "mamba": {conv
+    (..., batch, W - 1, di) in ``dtype``, h (..., batch, di, N) f32}};
+    mLSTM layers {S, n} and sLSTM layers {c, n, h}, all f32 and free of
+    ``cache_len``."""
     dev = resolve_device(device)
     int8 = cfg.kv_cache_dtype == "int8" and not staging
-    caches = []
-    for start, length, scanned in stack_plan(cfg):
-        kind = layer_kind(cfg, start)
-        if kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): {kind} caches are not ported "
-                "yet")
-        lead = (length,) if scanned else ()
+
+    def attn_entry(lead, window):
         if cfg.attn_type == "mla":
-            caches.append({"attn": {
-                "c_kv": torch.zeros(lead + (batch, cache_len,
-                                            cfg.kv_lora_rank),
-                                    dtype=dtype, device=dev),
-                "k_rope": torch.zeros(lead + (batch, cache_len,
-                                              cfg.qk_rope_dim),
-                                      dtype=dtype, device=dev)}})
-            continue
-        window = cfg.window_for_layer(start)
+            return {"c_kv": torch.zeros(lead + (batch, cache_len,
+                                                cfg.kv_lora_rank),
+                                        dtype=dtype, device=dev),
+                    "k_rope": torch.zeros(lead + (batch, cache_len,
+                                                  cfg.qk_rope_dim),
+                                          dtype=dtype, device=dev)}
         L = min(window, cache_len) if window and not staging else cache_len
         shape = lead + (batch, L, cfg.n_kv_heads, cfg.head_dim)
         kv_dt = torch.int8 if int8 else dtype
@@ -181,7 +237,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             entry["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
                                            device=dev)
             entry["v_scale"] = torch.zeros_like(entry["k_scale"])
-        caches.append({"attn": entry})
+        return entry
+
+    caches = []
+    for start, length, scanned in stack_plan(cfg):
+        kind = layer_kind(cfg, start)
+        lead = ((length,) if scanned else ()) + (batch,)
+        if kind == "mlstm":
+            caches.append(init_mlstm_cache(cfg, lead, dev))
+        elif kind == "slstm":
+            caches.append(init_slstm_cache(cfg, lead, dev))
+        else:
+            entry = {"attn": attn_entry(lead[:-1],
+                                        cfg.window_for_layer(start))}
+            if kind == "hybrid":
+                entry["mamba"] = init_mamba_cache(cfg, lead, dtype, dev)
+            caches.append(entry)
     return caches
 
 
@@ -191,12 +262,13 @@ def chunk_prefill(params: Params, tokens: torch.Tensor, caches, start: int,
     [start, start+C) against the staging ``caches`` (``init_cache(...,
     staging=True)`` zeros for the first chunk), which are written in place.
     Only the first ``n_valid`` tokens are real; the padded tail writes K/V
-    that no later query's mask admits.  Returns (logits (B, vocab_padded)
+    that no later query's mask admits and leaves recurrent state frozen.
+    Returns (logits (B, vocab_padded)
     at position start + n_valid - 1, caches) — the last chunk's logits are
     the prompt's next-token distribution, as ``prefill`` returns it."""
     x, _ = _inputs_to_x(params, {"tokens": tokens}, cfg)
     x, _, _ = apply_stack(params["stack"], x, cfg, caches=caches,
-                          cache_pos=int(start))
+                          cache_pos=int(start), valid_len=int(n_valid))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps).to(torch.bfloat16)
     logits = unembed(params["embedding"], x[:, n_valid - 1:n_valid], cfg)
     return logits[:, 0], caches

@@ -1,5 +1,7 @@
 """Block assembly and the layer stack — PyTorch port of
-`repro.nn.transformer` (attention blocks, dense or MoE).
+`repro.nn.transformer`: attention blocks (dense or MoE), hymba's hybrid
+blocks (SWA or global attention beside Mamba) and xLSTM's mLSTM / sLSTM
+blocks.
 
 The reference scans homogeneous runs of layers over stacked parameters;
 the port keeps that stacked layout (so weights and caches carry over leaf
@@ -24,6 +26,7 @@ from repro_torch.nn.attention import attention
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import mlp, rmsnorm
 from repro_torch.nn.moe import moe
+from repro_torch.nn.ssm import mamba, mlstm, slstm
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -69,23 +72,42 @@ def stack_plan(cfg: ModelConfig, min_group: int = 4) -> List[Tuple[int, int, boo
 def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
                 cache: Optional[Params] = None,
                 cache_pos=None, make_cache: bool = False, cache_len: int = 0,
-                page_table=None
+                page_table=None, valid_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Pre-norm attention + gated MLP (or MoE) block over the residual
-    stream `x` (bf16, or the f32 unrounded sum a previous block returned).
-    Returns (the f32 unrounded residual sum, new_cache, the MoE router's
-    aux loss (f32; 0 on a dense block))."""
+    """One pre-norm block over the residual stream `x` (bf16, or the f32
+    unrounded sum a previous block returned), by `layer_kind`:
+
+      * attn: attention + gated MLP (or MoE);
+      * hybrid (hymba): attention and Mamba side by side on the same
+        normed input, their outputs averaged in bf16, then the MLP;
+      * mlstm / slstm (xLSTM): `x + cell(norm1(x))`, no MLP.
+
+    `valid_len` marks how many of a chunk's tokens are real: recurrent
+    layers freeze their state past it (attention masks make it irrelevant
+    there).  Returns (the f32 unrounded residual sum, new_cache, the MoE
+    router's aux loss (f32; 0 on other blocks))."""
     kind = layer_kind(cfg, i)
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: layer {i} ({kind}) is not ported yet")
     act = torch.bfloat16
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps).to(act)
+    if kind in ("mlstm", "slstm"):
+        cell = mlstm if kind == "mlstm" else slstm
+        y, new_cache = cell(bp["cell"], h, cfg, cache=cache,
+                            make_cache=make_cache, valid_len=valid_len)
+        return (x.to(act).float() + y.float(), new_cache,
+                torch.zeros((), device=x.device))
     y, new_attn = attention(
         bp["attn"], h, cfg, layer_window=cfg.window_for_layer(i),
         cache=cache.get("attn") if cache else None,
         cache_pos=cache_pos, make_cache=make_cache, cache_len=cache_len,
         page_table=page_table)
+    new_cache = {"attn": new_attn} if new_attn is not None else None
+    if kind == "hybrid":
+        y_ssm, new_mamba = mamba(bp["mamba"], h, cfg,
+                                 cache=cache.get("mamba") if cache else None,
+                                 make_cache=make_cache, valid_len=valid_len)
+        y = 0.5 * (y + y_ssm)           # the mean of the two branches, bf16
+        if new_attn is not None or new_mamba is not None:
+            new_cache = {"attn": new_attn, "mamba": new_mamba}
     mid = x.to(act).float() + y.float()
     h2 = rmsnorm(bp["norm2"], mid, cfg.norm_eps).to(act)
     if "moe" in bp:
@@ -93,13 +115,13 @@ def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
     else:
         y2, aux = mlp(bp["mlp"], h2, cfg.act), torch.zeros((), device=x.device)
     out = mid.to(act).float() + y2.float()
-    return out, ({"attn": new_attn} if new_attn is not None else None), aux
+    return out, new_cache, aux
 
 
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 caches: Optional[List[Any]] = None,
                 cache_pos=None, make_cache: bool = False, cache_len: int = 0,
-                page_table=None
+                page_table=None, valid_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[List[Any]], torch.Tensor]:
     """Run every segment of `stack_plan(cfg)`.  Stacked segments index
     their (L, ...) params and caches per layer; a new stacked cache from a
@@ -112,7 +134,8 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         seg_params = params["segments"][seg_idx]
         seg_cache = caches[seg_idx] if caches is not None else None
         kw = dict(cache_pos=cache_pos, make_cache=make_cache,
-                  cache_len=cache_len, page_table=page_table)
+                  cache_len=cache_len, page_table=page_table,
+                  valid_len=valid_len)
         if not scanned:
             x, nc, aux = apply_block(seg_params, x, cfg, start,
                                      cache=seg_cache, **kw)

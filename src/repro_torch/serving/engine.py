@@ -70,6 +70,7 @@ from repro_torch.launch.steps import (cached_chunk_prefill_step,
                                       sample_step)
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.model import init_cache
+from repro_torch.nn.transformer import layer_kind
 from repro_torch.serving.bucketing import (PrefillProgress, bucket_for,
                                            bucket_ladder)
 from repro_torch.serving.faults import FaultModel
@@ -155,6 +156,19 @@ class ServingEngine:
         for m in models:
             if m.cfg.is_encoder or m.cfg.input_mode != "tokens":
                 raise ValueError(f"{m.name}: engine serves causal token LMs")
+            if prefill_chunk and any(
+                    layer_kind(m.cfg, i) == "mlstm"
+                    for i in range(m.cfg.n_layers)):
+                # the chunkwise-parallel mLSTM groups its sums per chunk, so
+                # a chunked prefill parts from the monolithic one token for
+                # token; refused, as the reference refuses it (Mamba and
+                # sLSTM step per token and stay chunking-exact)
+                raise ValueError(
+                    f"{m.name}: prefill_chunk > 0 is not supported for "
+                    "mLSTM tenants — chunkwise-parallel mLSTM prefill is "
+                    "not chunking-invariant (float regrouping at chunk "
+                    "boundaries changes tokens); serve this tenant with "
+                    "prefill_chunk=0")
         self.device = resolve_device(device)
         self.models: Dict[str, EngineModel] = {m.name: m for m in models}
         # fuse_sampling keeps sampling inside a paged tenant's decode step

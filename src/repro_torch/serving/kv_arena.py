@@ -23,22 +23,26 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.model import init_cache
 from repro_torch.nn.transformer import stack_plan
+from repro_torch.tree import tree_map
 
 
 def slot_write(cfg: ModelConfig, caches, one, slot: int) -> None:
     """Write a batch-1 cache `one` into arena row `slot`, in place (the
-    reference's `_cached_slot_write`).  Scanned segments carry the stacked
-    layer axis first, so the slot axis is 1 there and 0 on unrolled ones.
-    As `dynamic_update_slice` does, the write covers `one`'s own extent
-    from index 0 on every other axis: a staging shorter than `max_seq`
-    leaves the row's later positions stale."""
+    reference's `_cached_slot_write`): every leaf of every segment — K/V,
+    MLA latents, and the recurrent state of hybrid, mLSTM and sLSTM
+    layers.  Scanned segments carry the stacked layer axis first, so the
+    slot axis is 1 there and 0 on unrolled ones.  As
+    `dynamic_update_slice` does, the write covers `one`'s own extent from
+    index 0 on every other axis: a staging shorter than `max_seq` leaves
+    the row's later positions stale."""
+    def write(a, o, ax):
+        idx = [slice(0, n) for n in o.shape]
+        idx[ax] = slice(slot, slot + 1)
+        a[tuple(idx)] = o.to(a.dtype)
+
     for seg_a, seg_o, (_, _, scanned) in zip(caches, one, stack_plan(cfg)):
-        ax = 1 if scanned else 0
-        for name, a in seg_a["attn"].items():
-            o = seg_o["attn"][name]
-            idx = [slice(0, n) for n in o.shape]
-            idx[ax] = slice(slot, slot + 1)
-            a[tuple(idx)] = o.to(a.dtype)
+        tree_map(lambda a, o, ax=1 if scanned else 0: write(a, o, ax),
+                 seg_a, seg_o)
 
 
 class KVArena:

@@ -468,7 +468,7 @@ class PagedKVArena:
                 raise ValueError(
                     "paged KV needs a pure-attention stack; "
                     f"layer {start} of {cfg.name} is "
-                    f"{layer_kind(cfg, start)!r}")
+                    f"{layer_kind(cfg, start)!r} (use kv_layout='slot')")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_rows = n_rows

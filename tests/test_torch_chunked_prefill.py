@@ -4,7 +4,8 @@ chunk skip, against the reference on the CPU at gemma-7b smoke:
   * `bucket_ladder` / `bucket_for` and the engine's staging-length ladder
     (`staging_len_for`) equal the reference's over grids of their inputs;
   * `init_cache` layouts (staging and decode, bf16 and int8, single and
-    scanned segments) equal the reference's in shape and dtype;
+    scanned segments, and hymba's and xLSTM's recurrent entries) equal
+    the reference's in shape and dtype;
   * `chunk_prefill` chunk by chunk (aligned chunks with a padded tail, and
     a sub-chunk start) gives the reference's logits and staging K/V within
     the reference's bf16 tolerance, 2e-2 (`tests/test_kernels.py:94`; the
@@ -171,24 +172,22 @@ def _layout(tree):
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("staging", [True, False])
 @pytest.mark.parametrize("variant", [{}, {"n_layers": 4},
-                                     {"sliding_window": 6}],
-                         ids=["single", "scanned", "windowed"])
+                                     {"sliding_window": 6}, "hymba-1.5b",
+                                     "xlstm-350m"],
+                         ids=["single", "scanned", "windowed", "hymba",
+                              "xlstm"])
 def test_init_cache_layout_matches_reference(kv, staging, variant):
-    rc = dc.replace(RCFG, kv_cache_dtype=kv, **variant)
-    c = dc.replace(CFG, kv_cache_dtype=kv, **variant)
+    """gemma smoke and its variants, and hymba smoke (a hybrid layer's
+    {attn, mamba} entry) and xlstm smoke (mLSTM {S, n}, sLSTM {c, n, h})."""
+    if isinstance(variant, str):
+        rc = dc.replace(ref_config(variant, smoke=True), kv_cache_dtype=kv)
+        c = dc.replace(get_config(variant, smoke=True), kv_cache_dtype=kv)
+    else:
+        rc = dc.replace(RCFG, kv_cache_dtype=kv, **variant)
+        c = dc.replace(CFG, kv_cache_dtype=kv, **variant)
     want = _layout(ref_init_cache(rc, 2, 24, staging=staging))
     got = _layout(init_cache(c, 2, 24, staging=staging, device="cpu"))
     assert got == want
-
-
-def test_init_cache_rejects_unported_families():
-    # MLA latent caches are ported (tests/test_torch_mla.py); the
-    # recurrent families are not
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        init_cache(dc.replace(CFG, hybrid_parallel=True), 1, 8,
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        init_cache(dc.replace(CFG, family="ssm"), 1, 8, device="cpu")
 
 
 # ---------------------------------------------------------- chunk_prefill

@@ -1,14 +1,15 @@
 """The port's other model families against the reference on the CPU:
 
-  * the registry: minicpm-2b, yi-34b, qwen3-32b, deepseek-v2-lite-16b and
-    qwen3-moe-235b-a22b (and gemma-7b) field-equal to the reference's,
-    `full()` and `smoke()`, with the same `param_count`; hybrid, ssm and
-    the non-token input modes still refused;
+  * the registry: minicpm-2b, yi-34b, qwen3-32b, deepseek-v2-lite-16b,
+    qwen3-moe-235b-a22b, hymba-1.5b and xlstm-350m (and gemma-7b)
+    field-equal to the reference's, `full()` and `smoke()`, with the same
+    `param_count`; the non-token input modes still refused;
   * `init_params` on every family: the reference's tree, with qk_norm
-    scales, MLA's latent projections and the MoE stacks, the expert
-    stacks scaled by their own fan-in (axis 1), the router and MLA's
-    W_uk/W_uv kept in f32; the weight bridge keeps those three in f32
-    with the reference's values;
+    scales, MLA's latent projections, the MoE stacks and the Mamba, mLSTM
+    and sLSTM cells, the expert stacks scaled by their own fan-in (axis
+    1), the router, MLA's W_uk/W_uv and the recurrent cells' f32 leaves
+    (`nn.model.F32_LEAVES`) kept in f32; the weight bridge keeps those in
+    f32 with the reference's values;
   * every new family at smoke size: the prefill, paged and slot decode
     logits bit for bit, the forward's too on the dense families (within
     2e-2 on the MoE ones); for the dense GQA families (minicpm-2b,
@@ -54,7 +55,11 @@ from repro_torch.tree import tree_map
 from repro_torch.weights import params_from_reference
 
 ARCHS = ("gemma-7b", "minicpm-2b", "yi-34b", "qwen3-32b",
-         "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
+         "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", "hymba-1.5b",
+         "xlstm-350m")
+# the attention families beside gemma-7b: the paged arena takes them
+# (hymba and xLSTM are slot-only, `tests/test_torch_hybrid.py`)
+ATTENTION = ARCHS[1:6]
 DENSE = ("minicpm-2b", "yi-34b", "qwen3-32b")
 _PARAMS = {}
 
@@ -103,12 +108,10 @@ def test_configs_are_field_equal_to_the_reference(arch):
     assert arch in configs.ARCHS
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m",
-                                  "hubert-xlarge", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b"])
 def test_unported_families_are_refused(arch):
-    """Hybrid SWA ∥ mamba, xLSTM and the embeddings / prefix-VLM input
-    modes are not ported: neither the registry nor `init_params` takes
-    them."""
+    """The embeddings / prefix-VLM input modes are not ported: neither the
+    registry nor `init_params` takes them."""
     cfg = ModelConfig(**dc.asdict(ref_config(arch, smoke=True)))
     assert arch not in configs.ARCHS
     with pytest.raises(NotImplementedError):
@@ -116,7 +119,8 @@ def test_unported_families_are_refused(arch):
 
 
 # ----------------------------------------------------------------- init
-F32_LEAVES = {"scale", "router", "w_uk", "w_uv"}
+F32_LEAVES = {"scale", "router", "w_uk", "w_uv", "dt_bias", "A_log",
+              "if_bias", "r_gates", "gate_bias"}
 
 
 @pytest.mark.parametrize("arch", ARCHS[1:])
@@ -165,7 +169,7 @@ def _prompt(cfg, n, seed):
         .astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS[1:])
+@pytest.mark.parametrize("arch", ATTENTION)
 def test_forward_prefill_and_decode_logits_equal_the_reference(arch):
     """The whole-sequence forward, the prefill, then one paged and one
     slot decode step over the prefill's cache: bit for bit, the MoE
