@@ -123,7 +123,21 @@ Phases (any failure exits non-zero before the last line):
      then xlstm-350m (all 24 layers) through the default mode and the slot
      engine with no kernel launched, and the engine's refusal of chunked
      prefill for its mLSTM layers;
- 12. print the `kernels` JSON line, then the result line.
+ 12. the two non-token input modes at full width: hubert-xlarge (an
+     encoder over frame embeddings, all 48 layers) runs its forward over
+     `make_batch`'s 4 x 1,500 frames: 48 non-causal flash launches (head
+     dim 80 zero-padded to 128), no paged, finite logits within the
+     larger of LOGIT_TOL and twice the measured noise floor of the plain
+     versions', the forward profiled, and the flash kernel timed at that
+     shape beside SDPA and its bound; then paligemma-3b (all 18 layers,
+     MQA with head dim 256, 256 image-prefix positions) through the
+     default mode at batch 4 x 32 text tokens, 16 new (prefill S 288 with
+     the prefix mask, no flash; 18 paged launches a decode step over each
+     304-token slot), every step against the plain versions, one B 1
+     prefill of 1,024 text tokens (S 1,280: `chunked_attention` with the
+     prefix term in every layer, its first call held against the masked
+     softmax), and the paged kernel timed cold at the slot's shape;
+ 13. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -730,9 +744,9 @@ def first_step_logits(torch, cfg, params, requests, page):
         row = arena.alloc(rid, tuple(prompt))
         tokens = torch.tensor([prompt], device="cuda")
         bucket = arena.blocks_for(len(prompt)) * page
-        logits, one = prefill_step(params, tokens, cfg, bucket)
+        logits, one = prefill_step(params, {"tokens": tokens}, cfg, bucket)
         with plain:
-            logits_p, _ = prefill_step(params, tokens, cfg, bucket)
+            logits_p, _ = prefill_step(params, {"tokens": tokens}, cfg, bucket)
         pre_err = max(pre_err, (logits.float() - logits_p.float()).abs()
                       .max().item())
         arena.install(row, one, int(logits[0, :cfg.vocab].argmax()),
@@ -757,10 +771,11 @@ def first_step_logits(torch, cfg, params, requests, page):
     return pre_err, dec_err, scale, agree, arena
 
 
-def profile_step(torch, step, steps, label, bound_ms_):
+def profile_step(torch, step, steps, label, bound_ms_,
+                 bound_label="weight-read bound"):
     """Where one step's time goes: host wall time per step (ending in a
     synchronize) against the device time the profiler attributes to
-    kernels, and the kernels that take it."""
+    kernels, and the kernels that take it.  Returns the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -786,7 +801,7 @@ def profile_step(torch, step, steps, label, bound_ms_):
     log(f"{label}: {wall_ms:.2f} ms wall, {device_ms:.2f} ms device "
         f"({device_ms / wall_ms:.1%} busy), "
         f"{sum(e.count for e in kernels) // steps} kernels and {n_ops} aten "
-        f"calls per step; weight-read bound {bound_ms_:.2f} ms")
+        f"calls per step; {bound_label} {bound_ms_:.2f} ms")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         log(f"  {e.device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{e.count // steps:5d}x  {e.key[:90]}")
@@ -808,7 +823,7 @@ def profile_prefill(torch, cfg, params, prompt, steps=3):
     """The prefill step of one prompt, as the engine runs it."""
     from repro_torch.launch.steps import prefill_step
     tokens = torch.tensor([prompt], device="cuda")
-    profile_step(torch, lambda: prefill_step(params, tokens, cfg,
+    profile_step(torch, lambda: prefill_step(params, {"tokens": tokens}, cfg,
                                              len(prompt)), steps,
                  f"prefill step (1 x {len(prompt)} tokens, {cfg.n_layers} "
                  f"layers)", cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3)
@@ -1411,7 +1426,7 @@ def chunk_logits_check(torch, cfg, params, prompt):
         n = min(CHUNK, len(prompt) - start)
         logits, caches = chunk_prefill_step(
             params, tokens[:, start:start + n], caches, start, n, cfg)
-    mono, mono_cache = prefill_step(params, tokens, cfg, staging)
+    mono, mono_cache = prefill_step(params, {"tokens": tokens}, cfg, staging)
     kv_err = max((a.float() - b.float()).abs().max().item()
                  for a, b in zip(tree_leaves(caches), tree_leaves(mono_cache)))
     kv_scale = max(b.float().abs().max().item()
@@ -1636,8 +1651,8 @@ def slot_first_step(torch, cfg, params, requests):
     arena = KVArena(cfg, 8, SLOT_MAX_SEQ, device="cuda")
     for rid, (prompt, _, _) in enumerate(requests[:8]):
         slot = arena.alloc(rid)
-        logits, one = prefill_step(params, torch.tensor([prompt],
-                                                        device="cuda"),
+        logits, one = prefill_step(
+            params, {"tokens": torch.tensor([prompt], device="cuda")},
                                    cfg, SLOT_MAX_SEQ)
         arena.install(slot, one, int(logits[0, :cfg.vocab].argmax()),
                       len(prompt))
@@ -1674,13 +1689,14 @@ def slot_first_step(torch, cfg, params, requests):
     torch.cuda.empty_cache()
 
 
-def greedy_vs_plain(torch, cfg, params, toks):
+def greedy_vs_plain(torch, cfg, params, toks, greedy=None):
     """The default mode's prefill and every decode step of its loop, run
-    again twice on its own inputs (`make_batch`'s tokens, then `toks`, the
-    loop's tokens, fed back at positions prompt_len + i): through the
-    kernels, and with both wrappers swapped for their plain versions, each
-    on its own caches.  Every step's logits within LOGIT_TOL of the logit
-    scale; so the page view of the default mode's cache (p 16, T 34, one
+    again twice on its own inputs (`make_batch`'s batch, then `toks`, the
+    loop's tokens, fed back at positions prompt_len + prefix + i, prefix
+    a prefix VLM's image positions): through the kernels, and with both
+    wrappers swapped for their plain versions, each on its own caches.
+    Every step's logits within LOGIT_TOL of the logit scale; so the page
+    view of the default mode's cache (p 16, T 34 for gemma-7b's run, one
     position for every row) is held at each of the loop's positions.  On
     a MoE model the plain run is pinned to the kernel run's experts
     (`pinned_route`).  Returns (max abs err, logit scale, greedy
@@ -1689,17 +1705,19 @@ def greedy_vs_plain(torch, cfg, params, toks):
     differ), else None)."""
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.launch.steps import cached_prefill_step, cached_serve_step
-    B, S, gen = GREEDY["batch"], GREEDY["prompt_len"], GREEDY["gen"]
-    tokens = torch.as_tensor(make_batch(cfg, DataConfig(
-        seq_len=S, global_batch=B), 0)["tokens"], device="cuda")
+    greedy = greedy or GREEDY
+    B, S, gen = greedy["batch"], greedy["prompt_len"], greedy["gen"]
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in make_batch(
+        cfg, DataConfig(seq_len=S, global_batch=B), 0).items()}
+    pos = S + (cfg.prefix_len if cfg.input_mode == "prefix_vlm" else 0)
     fed = torch.as_tensor(toks, device="cuda")
-    prefill, step = cached_prefill_step(cfg, S + gen), cached_serve_step(cfg)
+    prefill, step = cached_prefill_step(cfg, pos + gen), cached_serve_step(cfg)
 
     def run():
-        logits, caches = prefill(params, tokens)
+        logits, caches = prefill(params, batch)
         out = [logits.float()]
         for i in range(gen - 1):
-            logits, caches = step(params, fed[:, i], caches, S + i)
+            logits, caches = step(params, fed[:, i], caches, pos + i)
             out.append(logits.float())
         return torch.stack(out, 1)
 
@@ -1728,55 +1746,59 @@ def greedy_vs_plain(torch, cfg, params, toks):
 
 def kernel_layers(cfg):
     """(layers whose monolithic prefill launches the flash kernel, layers
-    whose slot decode launches the paged kernel) in `cfg`'s stack: causal
-    attention with no window and no logit softcap; MLA decodes with no
-    kernel, and mLSTM / sLSTM layers have no attention."""
+    whose slot decode launches the paged kernel) in `cfg`'s stack:
+    attention (causal, or an encoder's full attention) with no window and
+    no logit softcap; MLA decodes with no kernel, mLSTM / sLSTM layers
+    have no attention, and a prefix VLM's prefill (its image positions
+    seen by every query) takes the masked softmax."""
     from repro_torch.nn.transformer import layer_kind
-    flash = sum(1 for i in range(cfg.n_layers)
+    paged = sum(1 for i in range(cfg.n_layers)
                 if layer_kind(cfg, i) in ("attn", "hybrid")
                 and cfg.window_for_layer(i) <= 0 and cfg.logit_softcap <= 0)
-    return flash, 0 if cfg.attn_type == "mla" else flash
+    flash = 0 if cfg.input_mode == "prefix_vlm" else paged
+    return flash, 0 if cfg.attn_type == "mla" else paged
 
 
-def default_mode(torch, cfg, params):
+def default_mode(torch, cfg, params, greedy=None):
     """The launcher without a mode flag (`serve.run_greedy`, the function
-    its CLI calls) on `params`: one B x S prefill, gen - 1 greedy decode
-    steps at a scalar position, launch counts set to 0 just before and
-    read just after; then every step's logits held against the plain
-    versions (`greedy_vs_plain`).  `cfg` is the registry's config of
-    `cfg.name` or one cut in depth, which the launcher is handed in place
-    of the registry's.  Returns the launches."""
+    its CLI calls) on `params` with `greedy`'s flags: one B x S prefill,
+    gen - 1 greedy decode steps at a scalar position, launch counts set
+    to 0 just before and read just after; then every step's logits held
+    against the plain versions (`greedy_vs_plain`).  `cfg` is the
+    registry's config of `cfg.name` or one cut in depth, which the
+    launcher is handed in place of the registry's.  Returns the launches."""
     import argparse
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch import serve
-    args = argparse.Namespace(arch=cfg.name, device="cuda", **GREEDY)
+    greedy = greedy or GREEDY
+    args = argparse.Namespace(arch=cfg.name, device="cuda", **greedy)
     zero_launch_counts()
     with mock.patch.object(serve, "get_config", lambda name, smoke: cfg):
         toks, t_prefill, t_decode = serve.run_greedy(args, params)
     launches = {"paged_attention": paged_attention.launches,
                 "flash_attention": flash_attention.launches}
     flash_layers, paged_layers = kernel_layers(cfg)
-    want = {"paged_attention": paged_layers * (GREEDY["gen"] - 1),
+    want = {"paged_attention": paged_layers * (greedy["gen"] - 1),
             "flash_attention": flash_layers}
-    if launches != want or toks.shape != (GREEDY["batch"], GREEDY["gen"]) \
+    if launches != want or toks.shape != (greedy["batch"], greedy["gen"]) \
             or not ((0 <= toks) & (toks < cfg.vocab_padded)).all():
         raise AssertionError(f"default mode: launches {launches}, want "
                              f"{want}; tokens {toks.shape}")
     log(f"default mode, {cfg.name} at {cfg.n_layers} layers (batch "
-        f"{GREEDY['batch']} x {GREEDY['prompt_len']} "
-        f"tokens, {GREEDY['gen']} new): prefill {t_prefill * 1e3:.1f} ms, "
-        f"{GREEDY['gen'] - 1} decode steps {t_decode * 1e3:.1f} ms "
-        f"({(GREEDY['gen'] - 1) / t_decode:.2f} steps/s, "
-        f"{(GREEDY['gen'] - 1) * GREEDY['batch'] / t_decode:.1f} tok/s); "
+        f"{greedy['batch']} x {greedy['prompt_len']} "
+        f"tokens, {greedy['gen']} new): prefill {t_prefill * 1e3:.1f} ms, "
+        f"{greedy['gen'] - 1} decode steps {t_decode * 1e3:.1f} ms "
+        f"({(greedy['gen'] - 1) / t_decode:.2f} steps/s, "
+        f"{(greedy['gen'] - 1) * greedy['batch'] / t_decode:.1f} tok/s); "
         f"launches {json.dumps(launches)}")
     err, scale, agree, same, routed = greedy_vs_plain(torch, cfg, params,
-                                                      toks)
+                                                      toks, greedy)
     pinned = ("" if routed is None else
               f" with the plain run pinned to the kernel run's experts "
               f"({routed[0]:.4g} routed by itself, expert sets differing in "
               f"{routed[1]:.2%} of (layer, token))")
-    log(f"default mode, prefill and {GREEDY['gen'] - 1} decode steps on the "
+    log(f"default mode, prefill and {greedy['gen'] - 1} decode steps on the "
         f"loop's tokens, kernels vs plain: logits max abs err {err:.4g}"
         f"{pinned} (logit scale {scale:.4g}, tolerance {LOGIT_TOL:.0%} of "
         f"it), greedy agreement {agree:.3f}; the kernels' rerun picks the "
@@ -2486,7 +2508,7 @@ def chunk_first_token_tie(torch, cfg, params, rid, request, picks):
     staging = -(-len(prompt) // CHUNK) * CHUNK
     mono_picks = []
     with recording_route(mono_picks):
-        m_logits, _ = prefill_step(params, tokens, cfg, staging)
+        m_logits, _ = prefill_step(params, {"tokens": tokens}, cfg, staging)
 
     def chunked(pin):
         state = {"calls": 0, "offset": 0}
@@ -2538,14 +2560,14 @@ def mla_prefill_vs_plain(torch, cfg, params, prompt):
     abs error free, pinned, logit scale, same greedy pick, share of expert
     sets that differ)."""
     from repro_torch.launch.steps import prefill_step
-    tokens = torch.tensor([prompt], device="cuda")
+    batch = {"tokens": torch.tensor([prompt], device="cuda")}
     k_picks, p_picks = [], []
     with recording_route(k_picks):
-        k_logits, _ = prefill_step(params, tokens, cfg, len(prompt))
+        k_logits, _ = prefill_step(params, batch, cfg, len(prompt))
     with plain_attention(), recording_route(p_picks):
-        p_logits, _ = prefill_step(params, tokens, cfg, len(prompt))
+        p_logits, _ = prefill_step(params, batch, cfg, len(prompt))
     with plain_attention(), pinned_route(k_picks, {"calls": 0, "offset": 0}):
-        q_logits, _ = prefill_step(params, tokens, cfg, len(prompt))
+        q_logits, _ = prefill_step(params, batch, cfg, len(prompt))
     k32, p32, q32 = (x.float()[:, :cfg.vocab]
                      for x in (k_logits, p_logits, q_logits))
     if not (torch.isfinite(k32).all() and k32.shape == (1, cfg.vocab)):
@@ -2573,8 +2595,8 @@ def mla_decode_profile(torch, cfg, params, requests):
     arena = KVArena(cfg, 8, SLOT_MAX_SEQ, device="cuda")
     for rid, (prompt, _, _) in enumerate(requests[:8]):
         slot = arena.alloc(rid)
-        logits, one = prefill_step(params, torch.tensor([prompt],
-                                                        device="cuda"),
+        logits, one = prefill_step(
+            params, {"tokens": torch.tensor([prompt], device="cuda")},
                                    cfg, SLOT_MAX_SEQ)
         arena.install(slot, one, int(logits[0, :cfg.vocab].argmax()),
                       len(prompt))
@@ -2853,20 +2875,20 @@ def state_logits_vs_plain(torch, cfg, params, prompt):
     from repro_torch.launch.steps import cached_serve_step, prefill_step
     from repro_torch.serving import KVArena
     from repro_torch.tree import tree_leaves
-    tokens = torch.tensor([prompt], device="cuda")
+    batch = {"tokens": torch.tensor([prompt], device="cuda")}
     gen = torch.Generator(device="cuda").manual_seed(LONG_PROMPT)
     records = []
 
     def share(name):
         return statistics.mean(r[2] for r in records if r[0] == name)
     with attention_wrappers(torch, records):
-        k_logits, one = prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+        k_logits, one = prefill_step(params, batch, cfg, HYBRID_MAX_SEQ)
     with plain_attention():
-        p_logits, _ = prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+        p_logits, _ = prefill_step(params, batch, cfg, HYBRID_MAX_SEQ)
     with attention_wrappers(torch, noise={"flash_attention":
                                           share("flash_attention")},
                             gen=gen):
-        n_logits, _ = prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+        n_logits, _ = prefill_step(params, batch, cfg, HYBRID_MAX_SEQ)
     arena = KVArena(cfg, 1, HYBRID_MAX_SEQ, device="cuda")
     arena.install(arena.alloc(0), one,
                   int(k_logits[0, :cfg.vocab].argmax()), len(prompt))
@@ -2931,8 +2953,8 @@ def hybrid_profile(torch, cfg, params, requests, long_prompt):
     from repro_torch.serving import KVArena
     arena = KVArena(cfg, 8, HYBRID_MAX_SEQ, device="cuda")
     for rid, (prompt, _, _) in enumerate(requests[:8]):
-        logits, one = prefill_step(params, torch.tensor([prompt],
-                                                        device="cuda"),
+        logits, one = prefill_step(
+            params, {"tokens": torch.tensor([prompt], device="cuda")},
                                    cfg, HYBRID_MAX_SEQ)
         arena.install(arena.alloc(rid), one,
                       int(logits[0, :cfg.vocab].argmax()), len(prompt))
@@ -2964,17 +2986,17 @@ def hybrid_profile(torch, cfg, params, requests, long_prompt):
                    default=0) / 1e3 / 5
     del arena
     torch.cuda.empty_cache()
-    tokens = torch.tensor([long_prompt], device="cuda")
-    prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)      # warm
+    batch = {"tokens": torch.tensor([long_prompt], device="cuda")}
+    prefill_step(params, batch, cfg, HYBRID_MAX_SEQ)      # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+    prefill_step(params, batch, cfg, HYBRID_MAX_SEQ)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     patch, spans = mamba_timed(torch)
     with patch:
         t0 = time.perf_counter()
-        prefill_step(params, tokens, cfg, HYBRID_MAX_SEQ)
+        prefill_step(params, batch, cfg, HYBRID_MAX_SEQ)
         torch.cuda.synchronize()
         timed_ms = (time.perf_counter() - t0) * 1e3
     out = dict(decode_wall_ms=wall_ms, decode_device_ms=device_ms,
@@ -3095,6 +3117,228 @@ def recurrent(torch):
     log(f"{cfg.name}: {time.perf_counter() - t0:.1f} s")
     log(f"phase 11 (hybrid and xLSTM): {time.perf_counter() - t_phase:.1f} s")
     return launches, profile
+
+
+# ------------------------------------------------------------ phase 12
+ENCODER_ARCH = "hubert-xlarge"
+VLM_ARCH = "paligemma-3b"
+ENCODER_DATA = (1500, 4)       # (seq_len, batch): 30 s clips at 50 frames/s
+# paligemma's default mode: 32 text tokens behind 256 image positions (a
+# prefill of S 288, a slot of 304 = 288 + 16)
+VLM_GREEDY = dict(smoke=False, batch=4, prompt_len=32, gen=16)
+VLM_LONG_PROMPT = 1024         # + 256 image positions: past the masked
+                               # softmax's 1,024, so `chunked_attention`
+
+
+def encoder_forward(torch, cfg, params):
+    """hubert-xlarge's forward over `make_batch`'s ENCODER_DATA embeddings
+    batch (warmed once, then launch counts set to 0 just before and read
+    just after: one non-causal flash launch a layer, no paged), its logits
+    through the kernels against the plain versions within the larger of
+    LOGIT_TOL and NOISE_MARGIN x the noise floor the run measures (phase
+    11's `attention_wrappers`; each kernel call also held against its
+    plain version on its inputs), and the forward profiled (wall against
+    device time) beside its bound.  Returns a dict of the numbers."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.nn.model import forward
+    from repro_torch.tree import tree_leaves
+    S, B = ENCODER_DATA
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in make_batch(cfg, DataConfig(S, B), 0).items()}
+    forward(params, batch, cfg)                  # warm
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches, _ = forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention.launches}
+    want = {"flash_attention": cfg.n_layers, "paged_attention": 0}
+    if launches != want or caches is not None \
+            or logits.shape != (B, S, cfg.vocab_padded) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name} forward: launches {launches}, "
+                             f"want {want}; logits {tuple(logits.shape)}")
+    records = []
+    with attention_wrappers(torch, records):
+        k_logits = forward(params, batch, cfg)[0]
+    with plain_attention():
+        p_logits = forward(params, batch, cfg)[0]
+    differ = statistics.mean(r[2] for r in records)
+    with attention_wrappers(torch, noise={"flash_attention": differ},
+                            gen=torch.Generator(device="cuda")
+                            .manual_seed(S)):
+        n_logits = forward(params, batch, cfg)[0]
+    k32, p32, n32 = (x.float()[..., :cfg.vocab]
+                     for x in (k_logits, p_logits, n_logits))
+    err = (k32 - p32).abs().max().item()
+    floor = (p32 - n32).abs().max().item()
+    scale = p32.abs().max().item()
+    tol = max(LOGIT_TOL * scale, NOISE_MARGIN * floor)
+    agree = (k32.argmax(-1) == p32.argmax(-1)).float().mean().item()
+    call_err = max(r[1] for r in records)
+    log(f"{cfg.name} forward ({B} x {S} frames, {cfg.n_layers} layers): "
+        f"{wall_ms:.1f} ms wall, launches {json.dumps(launches)}; flash on "
+        f"the path, kernel vs plain on each call's inputs: {len(records)} "
+        f"calls, max abs err {call_err:.4g} (KERNEL_TOL {KERNEL_TOL}), "
+        f"output elements that differ {differ:.2%}; logits kernels vs "
+        f"plain max abs err {err:.4g}, noise floor {floor:.4g}, logit scale "
+        f"{scale:.4g}, tolerance {tol:.4g}; argmax agreement {agree:.4f}")
+    if not (call_err <= KERNEL_TOL and err <= tol):
+        raise AssertionError(f"{cfg.name} forward: kernels and plain "
+                             "versions differ beyond the tolerance")
+    del k_logits, p_logits, n_logits, k32, p32, n32
+    # compute: 2 flops a weight a frame, Q·Kᵀ and P·V over S x S a head;
+    # memory: every weight read once
+    weights = sum(t.numel() for t in tree_leaves(params["stack"])) + \
+        params["embedding"]["head"].numel()
+    n_flops = 2 * weights * B * S + 4 * B * S * S * cfg.q_dim * cfg.n_layers
+    bound = bound_ms(param_bytes(params), n_flops)
+    prof_wall = profile_step(
+        torch, lambda: forward(params, batch, cfg), 3,
+        f"{cfg.name} forward profiled ({B} x {S} frames)", bound[0],
+        f"bound by {bound[1]}")
+    flash = check_flash(torch, S=S, H=cfg.n_heads, D=cfg.head_dim, seed=S,
+                        Hkv=cfg.n_kv_heads, B=B, causal=False)
+    f_err, ms, plain_ms, lib_ms, (b, by) = flash
+    log(f"flash_attention B{B} S{S} H{cfg.n_heads} D{cfg.head_dim} full "
+        f"({cfg.name}, D zero-padded to 128): err {f_err:.3g}, {ms:.4f} ms "
+        f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, kernel/sdpa "
+        f"{ms / lib_ms:.2f}), bound {b:.4f} ms by {by}, kernel/bound "
+        f"{ms / b:.2f}")
+    del batch, logits
+    return dict(launches=launches, wall_ms=wall_ms, profiled_wall_ms=prof_wall,
+                logit_err=err, noise_floor=floor, logit_scale=scale,
+                bound_ms=bound[0], bound_by=bound[1], flash=flash)
+
+
+def vlm_long_prefill(torch, cfg, params):
+    """One B 1 prefill of VLM_LONG_PROMPT tokens behind paligemma's image
+    positions (S + P past 1,024): every layer through `chunked_attention`
+    with the prefix term, no kernel launched (counts set to 0 just before,
+    read just after), finite logits and a cache of S + P; the first
+    layer's `chunked_attention` held against the masked softmax with the
+    same prefix mask within F32_TOL; the prefill timed warm.  Returns
+    (launches, ms, the chunked-vs-masked error)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.steps import prefill_step
+    from repro_torch.nn import attention as attn_mod
+    P = cfg.prefix_len
+    L = VLM_LONG_PROMPT + P
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in make_batch(
+        cfg, DataConfig(VLM_LONG_PROMPT, 1), 0).items()}
+    calls = []
+    orig = attn_mod.chunked_attention
+
+    def recording(q, k, v, **kw):
+        if not calls:
+            calls.append((q.clone(), k.clone(), v.clone(), kw))
+        calls.append(kw["prefix_len"])
+        return orig(q, k, v, **kw)
+    zero_launch_counts()
+    with mock.patch.object(attn_mod, "chunked_attention", recording):
+        logits, caches = prefill_step(params, batch, cfg, L)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention.launches}
+    k_shape = tuple(caches[0]["attn"]["k"].shape)
+    if launches != {"flash_attention": 0, "paged_attention": 0} \
+            or calls[1:] != [P] * cfg.n_layers \
+            or logits.shape != (1, cfg.vocab_padded) \
+            or not torch.isfinite(logits).all() or k_shape[-4] != 1 \
+            or k_shape[-3] != L:
+        raise AssertionError(f"{cfg.name} long prefill: launches "
+                             f"{launches}, chunked calls {calls[1:]}, "
+                             f"logits {tuple(logits.shape)}, cache {k_shape}")
+    q, k, v, kw = calls[0]
+    pos = torch.arange(L, device="cuda")[None, :]
+    mask = attn_mod._mask(pos, pos, causal=True, window=0, prefix_len=P)
+    err = (orig(q, k, v, **kw)
+           - attn_mod._softmax_attend(q, k, v, mask, 0.0)).abs().max().item()
+    if not err <= F32_TOL:
+        raise AssertionError(f"{cfg.name}: chunked_attention with the prefix "
+                             f"term parts from the masked softmax: {err}")
+    del calls, q, k, v, mask, caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_step(params, batch, cfg, L)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"{cfg.name} prefill 1 x ({P} image + {VLM_LONG_PROMPT} text) "
+        f"positions: {ms:.1f} ms wall (warm), launches "
+        f"{json.dumps(launches)}, {cfg.n_layers} chunked_attention calls "
+        f"with prefix {P}; layer 0's chunked_attention vs the masked "
+        f"softmax with the prefix mask: max abs err {err:.3g} (F32_TOL "
+        f"{F32_TOL})")
+    return launches, ms, err
+
+
+def input_modes(torch, card):
+    """Phase 12: hubert-xlarge whole at full width (48 layers, weights
+    drawn on the card) through `encoder_forward`, then paligemma-3b whole
+    (18 layers) through the default mode at VLM_GREEDY (paged launches a
+    decode step, none of flash; every step against the plain versions)
+    and `vlm_long_prefill`, and the paged kernel timed at its slot decode
+    shape (B 4, Hkv 1, G 8, D 256 over the 304-token slot seen as 19
+    pages of 16, every row at the loop's last position), each model freed
+    before the next.  Returns ({config: {run: launches}}, hubert's
+    numbers, the paged check)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.attention import _page_view
+    from repro_torch.nn.model import init_params
+    t_phase = time.perf_counter()
+    launches = {}
+    cfg = get_config(ENCODER_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"init_params {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {param_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    encoder = encoder_forward(torch, cfg, params)
+    launches[ENCODER_ARCH] = {"forward": encoder.pop("launches")}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"init_params {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {param_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s; kernel layers (flash, paged) "
+        f"{kernel_layers(cfg)}")
+    launches[VLM_ARCH] = {"default_mode": default_mode(torch, cfg, params,
+                                                       VLM_GREEDY)}
+    launches[VLM_ARCH]["long_prefill"], _, _ = vlm_long_prefill(
+        torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    slot = VLM_GREEDY["prompt_len"] + cfg.prefix_len + VLM_GREEDY["gen"]
+    page = _page_view(slot)            # the slot decode's view of its cache
+    last = slot - 2                    # the loop's last decode position
+    paged = check_paged(torch, B=VLM_GREEDY["batch"], H=cfg.n_heads,
+                        Hkv=cfg.n_kv_heads, D=cfg.head_dim, page=page,
+                        T=slot // page, seed=slot,
+                        pos_list=[last] * VLM_GREEDY["batch"])
+    err, ms, plain_ms, sdpa_ms, (b, by), warm_ms = paged
+    log(f"paged_attention B{VLM_GREEDY['batch']} H{cfg.n_heads} "
+        f"Hkv{cfg.n_kv_heads} G{cfg.n_heads // cfg.n_kv_heads} "
+        f"D{cfg.head_dim} page{page} T{slot // page} ({cfg.name}'s "
+        f"{slot}-token slot, pos {last}): err {err:.3g}, {ms:.4f} ms cold, "
+        f"{warm_ms:.4f} ms back to back (plain {plain_ms:.4f} ms, sdpa over "
+        f"pre-gathered K/V {sdpa_ms:.4f} ms cold), bound {b:.4f} ms by "
+        f"{by}, kernel/bound {ms / b:.2f}")
+    log(f"phase 12 (input modes): {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return launches, encoder, paged
 
 
 def main() -> int:
@@ -3327,7 +3571,8 @@ def main() -> int:
                 "flash_attention": flash_attention}
     ex, batch, s_logits, s_launches = streaming(torch, cfg, params, counters)
     from repro_torch.nn.model import forward
-    resident, _, _ = forward(params, batch["tokens"], cfg, last_only=True)
+    resident, _, _ = forward(params, {"tokens": batch["tokens"]}, cfg,
+                             last_only=True)
     r32 = resident[:, 0, :cfg.vocab].float()
     s32 = s_logits[:, -1, :cfg.vocab].float()
     log(f"streaming (int8 codes) vs resident bf16 weights, last position: "
@@ -3382,6 +3627,13 @@ def main() -> int:
     rec_launches, rec_profile = recurrent(torch)
     log(f"phase 11 {HYBRID_ARCH} profile: {json.dumps(rec_profile)}")
 
+    # phase 12: the two non-token input modes, hubert's encoder and
+    # paligemma's image prefix, at full width
+    mode_launches, encoder, vlm_paged = input_modes(torch, card)
+    log(f"phase 12 {ENCODER_ARCH} forward: " + json.dumps(
+        {k: v for k, v in encoder.items() if k != "flash"}))
+    hubert = encoder["flash"]
+
     def family_fields(name):
         return {"families_launches": {
             arch: ({run: v[name] for run, v in runs.items()}
@@ -3393,7 +3645,12 @@ def main() -> int:
             arch: {run: v[name] for run, v in runs.items()}
             for arch, runs in rec_launches.items()}}
 
-    # phase 12: report
+    def input_mode_fields(name):
+        return {"input_modes_launches": {
+            arch: {run: v[name] for run, v in runs.items()}
+            for arch, runs in mode_launches.items()}}
+
+    # phase 13: report
     def planes_fields(name):
         return {arm: launches[name]
                 for arm, launches in zip(("off", "on"), plane_launches)}
@@ -3404,7 +3661,8 @@ def main() -> int:
                    "paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:70",
          "launches": launches["paged_attention"],
-         "max_abs_err": max(r[0] for r in paged.values()),
+         "max_abs_err": max([r[0] for r in paged.values()]
+                            + [vlm_paged[0]]),
          "ms": paged[PAGED_MAIN][1], "plain_ms": paged[PAGED_MAIN][2],
          "bound_ms": paged[PAGED_MAIN][4][0],
          "bound_by": paged[PAGED_MAIN][4][1], "library_ms": None,
@@ -3418,13 +3676,20 @@ def main() -> int:
          "cold_ms_by_shape": {k: v[1] for k, v in paged.items()},
          "bound_ms_by_shape": {k: v[4][0] for k, v in paged.items()},
          **family_fields("paged_attention"),
-         **recurrent_fields("paged_attention")},
+         **recurrent_fields("paged_attention"),
+         **input_mode_fields("paged_attention"),
+         "paligemma_max_abs_err": vlm_paged[0], "paligemma_ms": vlm_paged[1],
+         "paligemma_plain_ms": vlm_paged[2],
+         "paligemma_sdpa_gathered_ms": vlm_paged[3],
+         "paligemma_bound_ms": vlm_paged[4][0],
+         "paligemma_bound_by": vlm_paged[4][1]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
          "launches": launches["flash_attention"],
-         "max_abs_err": max([f[0] for f in flash.values()] + [hymba[0]]),
+         "max_abs_err": max([f[0] for f in flash.values()]
+                            + [hymba[0], hubert[0]]),
          "ms": flash[1, 512][1], "plain_ms": flash[1, 512][2],
          "bound_ms": flash[1, 512][4][0], "bound_by": flash[1, 512][4][1],
          "library_ms": flash[1, 512][3],
@@ -3441,6 +3706,10 @@ def main() -> int:
          "hymba_plain_ms": hymba[2], "hymba_library_ms": hymba[3],
          "hymba_bound_ms": hymba[4][0], "hymba_bound_by": hymba[4][1],
          **recurrent_fields("flash_attention"),
+         "hubert_max_abs_err": hubert[0], "hubert_ms": hubert[1],
+         "hubert_plain_ms": hubert[2], "hubert_library_ms": hubert[3],
+         "hubert_bound_ms": hubert[4][0], "hubert_bound_by": hubert[4][1],
+         **input_mode_fields("flash_attention"),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
          "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},
         {"name": "delta_apply", "route": "cuda",

@@ -1,9 +1,11 @@
 """Deterministic, step-indexed synthetic data — port of
-`repro.data.pipeline` for the token input mode.
+`repro.data.pipeline`.
 
 batch(step) is a pure function of (seed, step): numpy's generator seeded
-with `SeedSequence([seed, step])` draws the same Zipfian token stream as
-the reference, so the port's launchers feed the reference's prompts.
+with `SeedSequence([seed, step])` makes the same draws in the same order
+as the reference (the Zipfian token stream; an encoder's frame
+embeddings, targets and loss mask; a VLM's patch embeddings), so the
+port's launchers feed the reference's batches.
 """
 from __future__ import annotations
 
@@ -30,10 +32,22 @@ def _tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray:
 
 def make_batch(cfg: ModelConfig, data: DataConfig,
                step: int) -> Dict[str, np.ndarray]:
-    """{"tokens": (global_batch, seq_len) int32} for step `step`."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode "
-                                  f"{cfg.input_mode!r} is not ported yet")
+    """Step `step`'s batch of global_batch x seq_len, by input mode:
+    {"tokens" int32}; {"embeds" f32 (B, S, d_model), "targets" int32,
+    "loss_mask" f32} for an embeddings model (half the positions counted,
+    masked prediction); {"tokens", "patch_embeds" f32 (B, prefix_len,
+    d_model)} for a prefix VLM."""
     rng = np.random.default_rng(np.random.SeedSequence([data.seed, step]))
-    return {"tokens": _tokens(rng, (data.global_batch, data.seq_len),
-                              cfg.vocab)}
+    B, S = data.global_batch, data.seq_len
+    if cfg.input_mode == "embeddings":
+        embeds = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+        targets = _tokens(rng, (B, S), cfg.vocab)
+        mask = (rng.random((B, S)) < 0.5).astype(np.float32)
+        return {"embeds": embeds, "targets": targets, "loss_mask": mask}
+    if cfg.input_mode == "prefix_vlm":
+        return {
+            "tokens": _tokens(rng, (B, S), cfg.vocab),
+            "patch_embeds": rng.standard_normal(
+                (B, cfg.prefix_len, cfg.d_model), dtype=np.float32),
+        }
+    return {"tokens": _tokens(rng, (B, S), cfg.vocab)}

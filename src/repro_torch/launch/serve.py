@@ -9,7 +9,9 @@ wear-aware placement and seeded stuck-at faults, the live telemetry plane
 (SLOs, Prometheus text or endpoint, JSONL events, flight recorder, step
 watchdog), and a Chrome trace, metrics and wear-map dump on request; or
 one forward of the ARAS layer-streaming executor, whose arena holds only
-`--arena-slots` layers (`--streaming`).
+`--arena-slots` layers (`--streaming`).  An encoder-only arch
+(hubert-xlarge) exits before any mode, as the reference's does: it has no
+decode path.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
         --batch 4 --prompt-len 512 --gen 32
@@ -40,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, get_config, supported_shapes
 from repro_torch.data.pipeline import DataConfig, make_batch
 # serving before launch.steps: the steps module imports serving.sampling,
 # whose package imports the engine, which imports the steps
@@ -230,9 +232,10 @@ def _run_engine(args, params=None) -> ServingEngine:
 
 def run_greedy(args, params=None):
     """The launcher's default mode, as `repro.launch.serve` without a mode
-    flag: `make_batch`'s `--batch` x `--prompt-len` tokens prefilled into
-    a cache of prompt_len + gen, then `--gen` - 1 greedy steps of the
-    batched decode step at one scalar position.  Prints the prefill and
+    flag: `make_batch`'s `--batch` x `--prompt-len` batch (a prefix VLM's
+    patch embeddings too) prefilled into a cache of prompt_len + prefix +
+    gen, then `--gen` - 1 greedy steps of the batched decode step at one
+    scalar position, prompt_len + prefix + i.  Prints the prefill and
     decode times and the decode rate; returns (tokens (batch, gen) int
     array, prefill seconds, decode seconds)."""
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -240,21 +243,22 @@ def run_greedy(args, params=None):
         params = init_params(cfg, seed=0, device=args.device)
     device = torch.device(args.device)
     data = DataConfig(seq_len=args.prompt_len, global_batch=args.batch)
-    tokens = torch.as_tensor(make_batch(cfg, data, 0)["tokens"],
-                             device=device)
-    prefill_fn = cached_prefill_step(cfg, args.prompt_len + args.gen)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in make_batch(cfg, data, 0).items()}
+    prefix = cfg.prefix_len if cfg.input_mode == "prefix_vlm" else 0
+    prefill_fn = cached_prefill_step(cfg, args.prompt_len + prefix + args.gen)
     serve_fn = cached_serve_step(cfg)
 
     t0 = time.perf_counter()
-    logits, caches = prefill_fn(params, tokens)
+    logits, caches = prefill_fn(params, batch)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
     out = [logits.argmax(-1).to(torch.int32)]
     t0 = time.perf_counter()
+    pos = args.prompt_len + prefix
     for i in range(args.gen - 1):
-        logits, caches = serve_fn(params, out[-1], caches,
-                                  args.prompt_len + i)
+        logits, caches = serve_fn(params, out[-1], caches, pos + i)
         out.append(logits.argmax(-1).to(torch.int32))
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -444,6 +448,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def main() -> None:
     args = _parser().parse_args()
+    if "decode_32k" not in supported_shapes(args.arch):
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
     if args.engine:
         _run_engine(args)
     elif args.streaming:

@@ -21,19 +21,20 @@ from repro_torch.nn.transformer import stack_plan
 from repro_torch.serving.sampling import sample_tokens
 
 
-def prefill_step(params, tokens: torch.Tensor, cfg: ModelConfig,
+def prefill_step(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                  cache_len: int):
-    """Prompt tokens (B, S) -> (next-token logits (B, vocab_padded), batch
-    caches of length cache_len)."""
-    return prefill(params, tokens, cfg, cache_len)
+    """A prompt batch ({"tokens": (B, S)}, with "patch_embeds" for a prefix
+    VLM) -> (next-token logits (B, vocab_padded), batch caches of length
+    cache_len)."""
+    return prefill(params, batch, cfg, cache_len)
 
 
 @functools.lru_cache(maxsize=None)
 def cached_prefill_step(cfg: ModelConfig, cache_len: int):
-    """`prefill_step` at one cache length: (params, tokens) -> (logits,
+    """`prefill_step` at one cache length: (params, batch) -> (logits,
     caches)."""
-    def step(params, tokens):
-        return prefill_step(params, tokens, cfg, cache_len)
+    def step(params, batch):
+        return prefill_step(params, batch, cfg, cache_len)
     return step
 
 

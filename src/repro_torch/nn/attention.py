@@ -2,8 +2,9 @@
 
 Four modes, as the serving path uses them:
   * prefill (cache=None, make_cache=True): causal self-attention over the
-    prompt through the flash kernel, then the batch's K/V laid out as a
-    contiguous cache (int8-quantized when the config says so);
+    prompt through the flash kernel (an encoder's full attention through
+    its non-causal mode), then the batch's K/V laid out as a contiguous
+    cache (int8-quantized when the config says so);
   * chunked prefill (cache = a contiguous staging cache, page_table None,
     cache_pos = the chunk's int start): write the chunk's K/V at
     absolute positions [start, start+S) of the staging cache, then attend
@@ -26,13 +27,16 @@ B·L/p pages of p tokens (p the largest power of two up to 16 dividing L)
 under an identity page table, with no copy, so the kernel walks only each
 row's live tokens.  Routes the kernels do not take are decided by the
 config, as the reference decides them: sliding-window, logit-softcap and
-non-causal prefills run the plain masked softmax (`_softmax_attend`) up
-to 1,024 tokens and `chunked_attention` past them (a windowed layer in
-bands of window + q_chunk keys, `_banded_attention`); windowed (ring) or
+prefix-VLM prefills (every query also sees the P image positions, the
+reference's `_mask` with `prefix_len`; the kernel has no prefix term)
+run the plain masked softmax (`_softmax_attend`) up to 1,024 tokens and
+`chunked_attention` past them (a windowed layer in bands of window +
+q_chunk keys, `_banded_attention`); windowed (ring) or
 softcapped slot decode and windowed or softcapped paged decode run the
 masked softmax too (`_paged_append_gqa` gathers the row's pages first);
-int8 caches are dequantized before the paged kernel.  gemma-7b takes
-none of those routes; hymba's sliding-window layers take them.
+int8 caches are dequantized before the paged kernel.  gemma-7b and
+hubert-xlarge take none of those routes; hymba's sliding-window layers
+and paligemma-3b's prefill take them.
 
 All paths accumulate in f32 and cast the result once to the activation
 dtype.  Caches are updated in place (the reference returns new caches
@@ -217,6 +221,7 @@ def attention(
     cfg: ModelConfig,
     *,
     layer_window: int = 0,
+    prefix_len: int = 0,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_pos: Optional[torch.Tensor] = None,
     make_cache: bool = False,
@@ -227,8 +232,10 @@ def attention(
     = a contiguous staging cache, page_table None, cache_pos = the chunk's
     int start), slot decode (cache = a contiguous cache, page_table None,
     cache_pos a 0-d or (B,) tensor) or paged decode (cache = page pools,
-    page_table (B, T), cache_pos (B,) per-row positions).  Returns
-    (y (B, S, d_model), new_cache); caches are written in place."""
+    page_table (B, T), cache_pos (B,) per-row positions).  `prefix_len`
+    leading positions are seen by every query of a causal prefill (a
+    prefix-VLM's image patches).  Returns (y (B, S, d_model), new_cache);
+    caches are written in place."""
     if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attn_type {cfg.attn_type!r} is not ported yet")
@@ -296,16 +303,20 @@ def attention(
             o = _softmax_attend(q, kc, vc, valid[:, None, :],
                                 cfg.logit_softcap)
     else:
-        if cfg.causal and layer_window <= 0 and cfg.logit_softcap <= 0:
-            o = flash_attention(q.reshape(B, S, H, D), k, v, causal=True)
+        if (layer_window <= 0 and cfg.logit_softcap <= 0
+                and not (cfg.causal and prefix_len)):
+            # causal prefix-free layers, and an encoder's full attention
+            o = flash_attention(q.reshape(B, S, H, D), k, v,
+                                causal=cfg.causal)
             o = o.reshape(B, S, Hkv, H // Hkv, D)
         elif S <= 1024:
             mask = _mask(positions, positions, causal=cfg.causal,
-                         window=layer_window, prefix_len=0)
+                         window=layer_window, prefix_len=prefix_len)
             o = _softmax_attend(q, k, v, mask, cfg.logit_softcap)
         else:
             o = chunked_attention(q, k, v, causal=cfg.causal,
                                   window=layer_window if cfg.causal else 0,
+                                  prefix_len=prefix_len,
                                   softcap=cfg.logit_softcap,
                                   q_chunk=cfg.attn_q_chunk,
                                   kv_chunk=cfg.attn_kv_chunk)

@@ -1,8 +1,16 @@
-"""Top-level language model — PyTorch port of `repro.nn.model` for token
-LMs (attention, hybrid attention ∥ Mamba, and xLSTM stacks): embeddings
-→ stack → norm → logits, plus the serving entry points: monolithic
-prefill, chunked prefill into a staging cache, and decode over
-contiguous (slot) or paged caches.
+"""Top-level model — PyTorch port of `repro.nn.model` (attention, hybrid
+attention ∥ Mamba, and xLSTM stacks): embeddings → stack → norm →
+logits, plus the serving entry points: monolithic prefill, chunked
+prefill into a staging cache, and decode over contiguous (slot) or paged
+caches.
+
+Input contract of `forward` and `prefill` (the `batch` dict), as the
+reference's:
+  tokens        (B, S) int           — LM families
+  embeds        (B, S, d_model)      — stubbed modality frontend (hubert)
+  patch_embeds  (B, P, d_model)      — stubbed vision frontend (paligemma)
+`chunk_prefill` and `decode_step` take token tensors, as the reference's
+do; a prefix-VLM model reaches them with its text tokens alone.
 """
 from __future__ import annotations
 
@@ -53,7 +61,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     `device` (the draws differ from jax's); matrices are stored in bf16,
     norm scales and the `F32_LEAVES` in f32 (see `repro_torch.weights`).
     Dense GQA (qk_norm too), MLA, MoE, hybrid (attention ∥ Mamba) and
-    xLSTM stacks are ported; only the token input mode."""
+    xLSTM stacks; an untied `head` where the config unties it."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -66,9 +74,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                       .mul_(scale))
         return out
 
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode "
-                                  f"{cfg.input_mode!r} is not ported yet")
     emb = {"table": draw((cfg.vocab_padded, cfg.d_model), 0.02,
                          torch.bfloat16)}
     if not cfg.tie_embeddings:
@@ -169,36 +174,44 @@ def _init_slstm(cfg: ModelConfig, normal, const) -> Params:
 # --------------------------------------------------------------- forward
 def _inputs_to_x(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, int]:
-    """The model's input stream from a batch dict: (x, prefix_len).  Only
-    the token input mode (`batch["tokens"]` (B, S)) is ported."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode "
-                                  f"{cfg.input_mode!r} is not ported yet")
+    """The model's input stream from a batch dict: (x, prefix_len).  An
+    embeddings model takes `embeds` cast to bf16; a prefix-VLM batch that
+    carries `patch_embeds` puts them, cast to the token dtype, before the
+    token embeddings (prefix_len = P); anything else embeds `tokens`."""
+    if cfg.input_mode == "embeddings":
+        return batch["embeds"].to(torch.bfloat16), 0
+    if cfg.input_mode == "prefix_vlm" and "patch_embeds" in batch:
+        tok = embed(params["embedding"], batch["tokens"], cfg)
+        pat = batch["patch_embeds"].to(tok.dtype)
+        return torch.cat([pat, tok], dim=1), pat.shape[1]
     return embed(params["embedding"], batch["tokens"], cfg), 0
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            caches=None, cache_pos=None, make_cache: bool = False,
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            *, caches=None, cache_pos=None, make_cache: bool = False,
             cache_len: int = 0, last_only: bool = False, page_table=None
             ) -> Tuple[torch.Tensor, Optional[Any], torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S|1, vocab_padded), new_caches, the
-    MoE layers' summed router aux loss (f32, 0 for dense stacks)).
-    ``last_only`` restricts the unembed to the final position."""
-    x, _ = _inputs_to_x(params, {"tokens": tokens}, cfg)
+    """batch (see the module docstring) -> (logits (B, P+S|1,
+    vocab_padded), new_caches, the MoE layers' summed router aux loss
+    (f32, 0 for dense stacks)).  ``last_only`` restricts the unembed to
+    the final position."""
+    x, prefix_len = _inputs_to_x(params, batch, cfg)
     x, new_caches, aux = apply_stack(
-        params["stack"], x, cfg, caches=caches, cache_pos=cache_pos,
-        make_cache=make_cache, cache_len=cache_len, page_table=page_table)
+        params["stack"], x, cfg, prefix_len=prefix_len, caches=caches,
+        cache_pos=cache_pos, make_cache=make_cache, cache_len=cache_len,
+        page_table=page_table)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps).to(torch.bfloat16)
     if last_only:
         x = x[:, -1:]
     return unembed(params["embedding"], x, cfg), new_caches, aux
 
 
-def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             cache_len: int):
-    """Run the prompt (B, S) through the model, returning
-    (next_token_logits (B, vocab_padded), caches of length cache_len)."""
-    logits, caches, _ = forward(params, tokens, cfg, make_cache=True,
+    """Run the prompt batch through the model, returning
+    (next_token_logits (B, vocab_padded), caches of length cache_len); a
+    prefix-VLM prompt's cache holds its P image positions first."""
+    logits, caches, _ = forward(params, batch, cfg, make_cache=True,
                                 cache_len=cache_len, last_only=True)
     return logits[:, 0], caches
 
@@ -283,7 +296,7 @@ def decode_step(params: Params, token: torch.Tensor, caches, pos,
     layout (see serving.kv_arena).  The caches are written in place and
     returned."""
     pos = torch.as_tensor(pos, device=token.device)
-    logits, new_caches, _ = forward(params, token[:, None], cfg,
+    logits, new_caches, _ = forward(params, {"tokens": token[:, None]}, cfg,
                                     caches=caches, cache_pos=pos,
                                     last_only=True, page_table=page_table)
     return logits[:, 0], new_caches

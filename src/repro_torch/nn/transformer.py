@@ -70,7 +70,7 @@ def stack_plan(cfg: ModelConfig, min_group: int = 4) -> List[Tuple[int, int, boo
 
 
 def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
-                cache: Optional[Params] = None,
+                prefix_len: int = 0, cache: Optional[Params] = None,
                 cache_pos=None, make_cache: bool = False, cache_len: int = 0,
                 page_table=None, valid_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
@@ -82,8 +82,10 @@ def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
         normed input, their outputs averaged in bf16, then the MLP;
       * mlstm / slstm (xLSTM): `x + cell(norm1(x))`, no MLP.
 
-    `valid_len` marks how many of a chunk's tokens are real: recurrent
-    layers freeze their state past it (attention masks make it irrelevant
+    `prefix_len` is the count of leading positions every query of a
+    causal prefill sees (a prefix-VLM's image patches).  `valid_len`
+    marks how many of a chunk's tokens are real: recurrent layers freeze
+    their state past it (attention masks make it irrelevant
     there).  Returns (the f32 unrounded residual sum, new_cache, the MoE
     router's aux loss (f32; 0 on other blocks))."""
     kind = layer_kind(cfg, i)
@@ -97,7 +99,7 @@ def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
                 torch.zeros((), device=x.device))
     y, new_attn = attention(
         bp["attn"], h, cfg, layer_window=cfg.window_for_layer(i),
-        cache=cache.get("attn") if cache else None,
+        prefix_len=prefix_len, cache=cache.get("attn") if cache else None,
         cache_pos=cache_pos, make_cache=make_cache, cache_len=cache_len,
         page_table=page_table)
     new_cache = {"attn": new_attn} if new_attn is not None else None
@@ -119,7 +121,7 @@ def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
 
 
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                caches: Optional[List[Any]] = None,
+                prefix_len: int = 0, caches: Optional[List[Any]] = None,
                 cache_pos=None, make_cache: bool = False, cache_len: int = 0,
                 page_table=None, valid_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[List[Any]], torch.Tensor]:
@@ -133,9 +135,9 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     for seg_idx, (start, length, scanned) in enumerate(stack_plan(cfg)):
         seg_params = params["segments"][seg_idx]
         seg_cache = caches[seg_idx] if caches is not None else None
-        kw = dict(cache_pos=cache_pos, make_cache=make_cache,
-                  cache_len=cache_len, page_table=page_table,
-                  valid_len=valid_len)
+        kw = dict(prefix_len=prefix_len, cache_pos=cache_pos,
+                  make_cache=make_cache, cache_len=cache_len,
+                  page_table=page_table, valid_len=valid_len)
         if not scanned:
             x, nc, aux = apply_block(seg_params, x, cfg, start,
                                      cache=seg_cache, **kw)

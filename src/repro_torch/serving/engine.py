@@ -483,7 +483,7 @@ class ServingEngine:
             tokens = torch.tensor([prompt], dtype=torch.int64,
                                   device=self.device)
             logits, caches = self._prefill_fn(req.model, len(prompt))(
-                m.params, tokens)
+                m.params, {"tokens": tokens})
             tok = self._pick_token(req, logits[0])
             n_tokens += len(prompt)
             arena.install(slot, caches, tok, prompt if paged else len(prompt))

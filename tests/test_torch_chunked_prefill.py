@@ -238,7 +238,8 @@ def test_chunk_prefill_matches_reference(chunking, variant):
             g.float().numpy()[..., :PROMPT_LEN, :, :],
             np.asarray(w.astype(jnp.float32))[..., :PROMPT_LEN, :, :],
             rtol=BF16_TOL, atol=BF16_TOL)
-    mono, _ = prefill(params, torch.from_numpy(prompt[None]).long(), c,
+    mono, _ = prefill(params,
+                      {"tokens": torch.from_numpy(prompt[None]).long()}, c,
                       STAGING)
     assert torch.equal(mono, got)
 

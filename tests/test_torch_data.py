@@ -30,13 +30,6 @@ def test_make_batch_matches_reference(seed, step, seq_len, batch):
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
-def test_make_batch_refuses_unported_input_modes():
-    import dataclasses
-    with pytest.raises(NotImplementedError, match="embeddings"):
-        make_batch(dataclasses.replace(CFG, input_mode="embeddings"),
-                   DataConfig(8, 2), 0)
-
-
 def test_streaming_cli_feeds_make_batch(monkeypatch, capsys):
     seen = []
     forward = executor_mod.StreamingExecutor.forward

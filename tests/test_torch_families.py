@@ -1,12 +1,13 @@
 """The port's other model families against the reference on the CPU:
 
   * the registry: minicpm-2b, yi-34b, qwen3-32b, deepseek-v2-lite-16b,
-    qwen3-moe-235b-a22b, hymba-1.5b and xlstm-350m (and gemma-7b)
-    field-equal to the reference's, `full()` and `smoke()`, with the same
-    `param_count`; the non-token input modes still refused;
+    qwen3-moe-235b-a22b, hymba-1.5b, xlstm-350m, hubert-xlarge and
+    paligemma-3b (and gemma-7b) field-equal to the reference's, `full()`
+    and `smoke()`, with the same `param_count`;
   * `init_params` on every family: the reference's tree, with qk_norm
-    scales, MLA's latent projections, the MoE stacks and the Mamba, mLSTM
-    and sLSTM cells, the expert stacks scaled by their own fan-in (axis
+    scales, MLA's latent projections, the MoE stacks, the Mamba, mLSTM
+    and sLSTM cells and hubert's untied head and ungated MLP, the expert
+    stacks scaled by their own fan-in (axis
     1), the router, MLA's W_uk/W_uv and the recurrent cells' f32 leaves
     (`nn.model.F32_LEAVES`) kept in f32; the weight bridge keeps those in
     f32 with the reference's values;
@@ -44,7 +45,6 @@ from repro.streaming import plan as ref_plan
 from repro.streaming.executor import StreamingExecutor as RefExecutor
 from repro_torch import configs
 from repro_torch.configs import get_config
-from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.model import (decode_step, forward, init_params,
                                   prefill)
 from repro_torch.serving.paging import (PagedKVArena, init_page_pool,
@@ -56,7 +56,7 @@ from repro_torch.weights import params_from_reference
 
 ARCHS = ("gemma-7b", "minicpm-2b", "yi-34b", "qwen3-32b",
          "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", "hymba-1.5b",
-         "xlstm-350m")
+         "xlstm-350m", "hubert-xlarge", "paligemma-3b")
 # the attention families beside gemma-7b: the paged arena takes them
 # (hymba and xLSTM are slot-only, `tests/test_torch_hybrid.py`)
 ATTENTION = ARCHS[1:6]
@@ -106,16 +106,6 @@ def test_configs_are_field_equal_to_the_reference(arch):
         assert got.active_param_count() == want.active_param_count()
         assert got.layer_is_moe == want.layer_is_moe
     assert arch in configs.ARCHS
-
-
-@pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b"])
-def test_unported_families_are_refused(arch):
-    """The embeddings / prefix-VLM input modes are not ported: neither the
-    registry nor `init_params` takes them."""
-    cfg = ModelConfig(**dc.asdict(ref_config(arch, smoke=True)))
-    assert arch not in configs.ARCHS
-    with pytest.raises(NotImplementedError):
-        init_params(cfg, device="cpu")
 
 
 # ----------------------------------------------------------------- init
@@ -181,7 +171,8 @@ def test_forward_prefill_and_decode_logits_equal_the_reference(arch):
     toks = _prompt(cfg, 11, seed=3)
     r_fwd, _, _ = jax.jit(ref_forward, static_argnums=2)(
         ref, {"tokens": jnp.asarray(toks)}, rcfg)
-    t_fwd, _, _ = forward(port, torch.from_numpy(toks).long(), cfg)
+    t_fwd, _, _ = forward(port, {"tokens": torch.from_numpy(toks).long()},
+                          cfg)
     if cfg.n_experts:
         np.testing.assert_allclose(_np(t_fwd), _np(r_fwd), rtol=2e-2,
                                    atol=2e-2)
@@ -189,7 +180,8 @@ def test_forward_prefill_and_decode_logits_equal_the_reference(arch):
         np.testing.assert_array_equal(_np(t_fwd), _np(r_fwd))
     r_logits, r_cache = cached_prefill_step(rcfg, 12)(
         ref, {"tokens": jnp.asarray(toks)})
-    t_logits, t_cache = prefill(port, torch.from_numpy(toks).long(), cfg, 12)
+    t_logits, t_cache = prefill(
+        port, {"tokens": torch.from_numpy(toks).long()}, cfg, 12)
     np.testing.assert_array_equal(_np(t_logits), _np(r_logits))
     table = np.asarray([[2, 4, 5, 0, 0, 0]], np.int32)
     r_pool = ref_init_page_pool(rcfg, 6, 4)
@@ -236,7 +228,7 @@ def _port_paged(arch, prompt, n_new, page=4):
     _, cfg, _, port = _params(arch)
     arena = PagedKVArena(cfg, 1, 8, page, device="cpu")
     row = arena.alloc(0, tuple(prompt))
-    logits, one = prefill(port, torch.tensor([prompt]), cfg,
+    logits, one = prefill(port, {"tokens": torch.tensor([prompt])}, cfg,
                           arena.blocks_for(len(prompt)) * page)
     toks = [int(torch.argmax(logits[0, :cfg.vocab]))]
     arena.install(row, one, toks[-1], tuple(prompt))
@@ -268,8 +260,8 @@ def test_int8_kv_on_qwen3_equals_the_reference():
                                          cfg.vocab), np.int32)
     r_logits, r_cache = cached_prefill_step(rcfg, 32)(
         ref, {"tokens": jnp.asarray(toks[:, :24])})
-    t_logits, t_cache = prefill(port, torch.from_numpy(toks[:, :24]).long(),
-                                cfg, 32)
+    t_logits, t_cache = prefill(
+        port, {"tokens": torch.from_numpy(toks[:, :24]).long()}, cfg, 32)
     np.testing.assert_array_equal(_np(t_logits), _np(r_logits))
     for g, w in zip(t_cache, r_cache):
         for name in ("k", "v", "k_scale", "v_scale"):
@@ -281,8 +273,8 @@ def test_int8_kv_on_qwen3_equals_the_reference():
                            t_cache, 24, cfg)
     np.testing.assert_array_equal(_np(t_out), _np(r_out))
     _, cfg16, _, port16 = _params("qwen3-32b")
-    _, c16 = prefill(port16, torch.from_numpy(toks[:, :24]).long(), cfg16,
-                     32)
+    _, c16 = prefill(port16, {"tokens": torch.from_numpy(toks[:, :24]).long()},
+                     cfg16, 32)
     out16, _ = decode_step(port16, torch.from_numpy(toks[:, 24]).long(),
                            c16, 24, cfg16)
     rel = np.abs(_np(t_out) - _np(out16)).max() / np.abs(_np(out16)).max()
@@ -322,5 +314,6 @@ def test_streaming_executor_on_minicpm():
     assert got.shape == want.shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2e-2 * np.abs(want).max())
-    resident, _, _ = forward(f32, torch.from_numpy(batch).long(), cfg)
+    resident, _, _ = forward(f32, {"tokens": torch.from_numpy(batch).long()},
+                             cfg)
     assert np.abs(got - _np(resident)).max() < 0.2

@@ -131,12 +131,13 @@ def test_prefill_forward_and_slot_decode_match_reference(arch):
     toks = _tokens(cfg, 2, 21)
     want, rc = jax.jit(lambda p, t: ref_prefill(
         p, {"tokens": t}, rcfg, MAX_SEQ))(rp, jnp.asarray(toks))
-    got, pc = prefill(pp, torch.from_numpy(toks).long(), cfg, MAX_SEQ)
+    got, pc = prefill(pp, {"tokens": torch.from_numpy(toks).long()}, cfg,
+                      MAX_SEQ)
     _assert_bf16(want, got)
     _assert_caches(rc, pc)
     want_f, _, _ = jax.jit(lambda p, t: ref_forward(
         p, {"tokens": t}, rcfg))(rp, jnp.asarray(toks))
-    got_f, _, _ = forward(pp, torch.from_numpy(toks).long(), cfg)
+    got_f, _, _ = forward(pp, {"tokens": torch.from_numpy(toks).long()}, cfg)
     _assert_bf16(want_f, got_f)
     step = jax.jit(lambda p, t, c, pos: ref_decode_step(p, t, c, pos, rcfg))
     tok = np.array(jnp.argmax(want[:, :cfg.vocab], -1), np.int32)
@@ -168,7 +169,8 @@ def test_chunk_prefill_matches_reference(arch):
                                 n, cfg)
         _assert_bf16(want, got)
         _assert_caches(rc, pc)
-    mono, _ = prefill(pp, torch.from_numpy(prompt).long(), cfg, 24)
+    mono, _ = prefill(pp, {"tokens": torch.from_numpy(prompt).long()}, cfg,
+                      24)
     np.testing.assert_allclose(_np(got), _np(mono), atol=BF16_TOL, rtol=0)
     assert int(got[0, :cfg.vocab].argmax()) == \
         int(mono[0, :cfg.vocab].argmax())
@@ -181,8 +183,8 @@ def test_slot_install_writes_every_recurrent_leaf(arch):
     rings and the Mamba, mLSTM and sLSTM states (the install used to copy
     attention entries only); the other slots stay zero."""
     _, cfg, _, pp, _ = _params(arch)
-    one = prefill(pp, torch.from_numpy(_tokens(cfg, 1, 19)).long(), cfg,
-                  MAX_SEQ)[1]
+    one = prefill(pp, {"tokens": torch.from_numpy(_tokens(cfg, 1, 19)).long()},
+                  cfg, MAX_SEQ)[1]
     arena = KVArena(cfg, 3, MAX_SEQ, device="cpu")
     arena.install(1, one, first_token=5, prompt_len=19)
     leaves, ones = _by_key(arena.caches), _by_key(one)

@@ -131,8 +131,8 @@ def test_prefill_logits_and_latents_equal_the_reference():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(attn_mod, "flash_attention", counting)
-        logits, caches = prefill(PARAMS, torch.from_numpy(toks).long(), CFG,
-                                 16)
+        logits, caches = prefill(
+            PARAMS, {"tokens": torch.from_numpy(toks).long()}, CFG, 16)
     r_logits, r_caches = cached_prefill_step(RCFG, 16)(
         REF_PARAMS, {"tokens": jnp.asarray(toks)})
     np.testing.assert_array_equal(_np(logits), _np(r_logits))
@@ -177,8 +177,9 @@ def test_chunk_prefill_matches_reference(chunking):
         # a one-token chunk attends through the absorbed branch, which
         # moves that token's residual stream, hence later layers' latents,
         # off the monolithic prefill's (in the reference too)
-        mono, _ = prefill(PARAMS, torch.from_numpy(toks[None]).long(), CFG,
-                          STAGING)
+        mono, _ = prefill(PARAMS,
+                          {"tokens": torch.from_numpy(toks[None]).long()},
+                          CFG, STAGING)
         np.testing.assert_array_equal(_np(logits), _np(mono))
 
 
@@ -242,8 +243,9 @@ def test_paged_decode_equals_slot_decode_bit_for_bit():
     ps, n_pages, plen = 4, 8, 6
     toks = _prompt(plen, seed=1)
     L = n_pages * ps
-    logits, caches_c = prefill(PARAMS, torch.from_numpy(toks).long(), CFG, L)
-    _, one = prefill(PARAMS, torch.from_numpy(toks).long(), CFG, 2 * ps)
+    batch = {"tokens": torch.from_numpy(toks).long()}
+    logits, caches_c = prefill(PARAMS, batch, CFG, L)
+    _, one = prefill(PARAMS, batch, CFG, 2 * ps)
     pool = init_page_pool(CFG, n_pages + 1, ps, device="cpu")
     r_logits, r_one = cached_prefill_step(RCFG, 2 * ps)(
         REF_PARAMS, {"tokens": jnp.asarray(toks)})
@@ -279,7 +281,8 @@ def test_page_write_read_and_stage_install_on_latent_pools():
     `cached_stage_install`, against the reference's jitted page ops and
     stage install."""
     toks = _prompt(7, seed=2)
-    _, one = prefill(PARAMS, torch.from_numpy(toks).long(), CFG, 8)
+    _, one = prefill(PARAMS, {"tokens": torch.from_numpy(toks).long()}, CFG,
+                     8)
     _, r_one = cached_prefill_step(RCFG, 8)(REF_PARAMS,
                                             {"tokens": jnp.asarray(toks)})
     c8 = dc.replace(CFG, kv_cache_dtype="int8")
@@ -318,9 +321,9 @@ def test_prefill_decode_consistency(arch):
     toks = np.array(jax.random.randint(jax.random.PRNGKey(9), (2, 25), 0,
                                        cfg.vocab), np.int32)
     t = torch.from_numpy(toks).long()
-    _, caches = prefill(port, t[:, :24], cfg, 32)
+    _, caches = prefill(port, {"tokens": t[:, :24]}, cfg, 32)
     logits_d, _ = decode_step(port, t[:, 24], caches, 24, cfg)
-    full, _, _ = forward(port, t, cfg, last_only=True)
+    full, _, _ = forward(port, {"tokens": t}, cfg, last_only=True)
     np.testing.assert_allclose(_np(logits_d), _np(full[:, 0]), rtol=0.15,
                                atol=0.25)
     _, r_caches = cached_prefill_step(rcfg, 32)(

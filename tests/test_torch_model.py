@@ -126,7 +126,8 @@ def test_prefill_and_paged_decode_logits_match_reference(kv, n_layers):
     toks = _prompt(S, seed=3)
     r_logits, r_cache = cached_prefill_step(rcfg, 12)(
         ref_params, {"tokens": jnp.asarray(toks)})
-    t_logits, t_cache = prefill(params, torch.from_numpy(toks).long(), cfg, 12)
+    t_logits, t_cache = prefill(
+        params, {"tokens": torch.from_numpy(toks).long()}, cfg, 12)
     np.testing.assert_allclose(_f32(t_logits), _f32(r_logits), rtol=TOL,
                                atol=TOL)
     # both caches into pages 2, 4, 5 of a fresh pool, then one decode step
@@ -170,7 +171,8 @@ def _port_sequential(prompt, n_new, page=4):
     arena = PagedKVArena(CFG, 1, 8, page, device="cpu")
     row = arena.alloc(0, tuple(prompt))
     bucket = arena.blocks_for(len(prompt)) * page
-    logits, one = prefill(PARAMS, torch.tensor([prompt]), CFG, bucket)
+    logits, one = prefill(PARAMS, {"tokens": torch.tensor([prompt])}, CFG,
+                          bucket)
     toks = [int(torch.argmax(logits[0, :CFG.vocab]))]
     arena.install(row, one, toks[-1], tuple(prompt))
     for _ in range(n_new - 1):

@@ -350,9 +350,9 @@ def test_f32_and_bf16_params_compute_the_same_logits(params):
     np_a, a = params["a"]
     b16 = params_from_reference(np_a, CFG, device="cpu")
     assert any(t.dtype == torch.bfloat16 for t in tree_leaves(b16))
-    tokens = torch.tensor([[5, 17, 3, 99, 42, 7]])
-    l32, _ = prefill_step(a, tokens, CFG, 8)
-    l16, _ = prefill_step(b16, tokens, CFG, 8)
+    batch = {"tokens": torch.tensor([[5, 17, 3, 99, 42, 7]])}
+    l32, _ = prefill_step(a, batch, CFG, 8)
+    l16, _ = prefill_step(b16, batch, CFG, 8)
     assert torch.equal(l32, l16)
 
 

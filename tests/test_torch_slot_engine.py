@@ -114,7 +114,7 @@ def _sequential(prompt, n_new, seed=0, cache_len=MAX_SEQ):
     decode step one token at a time at scalar positions."""
     params = _params(seed)[1]
     logits, caches = cached_prefill_step(CFG, cache_len)(
-        params, torch.tensor([prompt]))
+        params, {"tokens": torch.tensor([prompt])})
     toks = [int(logits[0, :CFG.vocab].argmax())]
     for i in range(n_new - 1):
         logits, caches = cached_serve_step(CFG)(
