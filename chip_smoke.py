@@ -137,7 +137,21 @@ Phases (any failure exits non-zero before the last line):
      prefill of 1,024 text tokens (S 1,280: `chunked_attention` with the
      prefix term in every layer, its first call held against the masked
      softmax), and the paged kernel timed cold at the slot's shape;
- 13. print the `kernels` JSON line, then the result line.
+ 13. the ARAS paper layer: the paper's five nets (vgg16, resnet50,
+     densenet161, bert_base, bert_large) with their seeded codes at
+     1,000,000 samples a layer drawn onto the card, each through
+     `simulate_aras` in the five variants (naive, baseline, B, BR, BRW),
+     `simulate_tpu`, `upper_bound_cycles` and the BRW `build_schedule`,
+     which must validate; every result must equal the same calls with the
+     codes on the CPU, and each net's BRW/baseline speedup and §V-C center
+     the reference's (model outputs of the paper's simulated machines);
+     then the pulse_count kernel on every consecutive layer pair of
+     resnet50 and bert_large (offsets of BRW, 53 + 144 launches), equal to
+     its plain version and within 6 standard errors of the simulator's
+     expected pulses per weight; then the three example arms
+     (`examples/*_torch.py`) in this process, serve_stream_torch launching
+     paged, flash, delta_apply and pulse_count;
+ 14. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -302,17 +316,29 @@ def cuda_ms_cold(fn, iters: int) -> float:
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
-def zero_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper to 0: done just before
-    each path is driven, so each path's counts are its own."""
+def kernel_wrappers():
+    """{kernel: its wrapper}; each wrapper counts its launches in
+    `.launches`."""
     from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
     from repro_torch.kernels.delta_apply.ops import apply_delta
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.pulse_count.ops import pulse_count
-    for wrapper in (paged_attention, flash_attention, apply_delta,
-                    pulse_count, crossbar_mvm):
+    return {"paged_attention": paged_attention,
+            "flash_attention": flash_attention, "delta_apply": apply_delta,
+            "pulse_count": pulse_count, "crossbar_mvm": crossbar_mvm}
+
+
+def zero_launch_counts() -> None:
+    """Set the launch count of every kernel wrapper to 0: done just before
+    each path is driven, so each path's counts are its own."""
+    for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+
+
+def launch_counts():
+    """{kernel: launches} of every wrapper since the counts were zeroed."""
+    return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -1566,11 +1592,6 @@ def slot_serve(torch, cfg, params, requests, mono_tokens):
     none of delta_apply, pulse_count or crossbar_mvm (one tenant, resident
     before the run), every first token (the prefill's) equal to phase 3's.
     Returns the launches of all five kernels."""
-    from repro_torch.kernels.crossbar_mvm.ops import crossbar_mvm
-    from repro_torch.kernels.delta_apply.ops import apply_delta
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.pulse_count.ops import pulse_count
     from repro_torch.serving import (EngineModel, SchedulerConfig,
                                      ServingEngine, format_summary)
     from repro_torch.tree import tree_leaves
@@ -1590,11 +1611,7 @@ def slot_serve(torch, cfg, params, requests, mono_tokens):
     summary = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_attention": paged_attention.launches,
-                "flash_attention": flash_attention.launches,
-                "delta_apply": apply_delta.launches,
-                "pulse_count": pulse_count.launches,
-                "crossbar_mvm": crossbar_mvm.launches}
+    launches = launch_counts()
     reqs = list(eng.requests.values())
     if not all(r.status.value == "finished"
                and len(r.generated) == r.max_new_tokens
@@ -3341,6 +3358,239 @@ def input_modes(torch, card):
     return launches, encoder, paged
 
 
+# ------------------------------------------------------------ phase 13
+PAPER_SAMPLES = 1_000_000      # synth_layer_codes' default max_samples
+PAPER_VARIANTS = ("naive", "baseline", "B", "BR", "BRW")
+# BRW/baseline makespan and the §V-C center of each net: model outputs of
+# the paper's simulated ARAS machine, as the reference computes them from
+# the same seeded codes at PAPER_SAMPLES (the speedup to two decimals)
+PAPER_EXPECTED = {"vgg16": (1.84, 104), "resnet50": (2.19, 104),
+                  "densenet161": (1.82, 88), "bert_base": (1.00, 152),
+                  "bert_large": (1.00, 104)}
+PULSE_NETS = ("resnet50", "bert_large")
+PULSE_Z_MAX = 6.0              # standard errors from the §V-C expectation
+EXAMPLE_ARMS = ("quickstart_torch", "schedule_explore_torch",
+                "serve_stream_torch")
+SERVE_STREAM_KERNELS = ("paged_attention", "flash_attention", "delta_apply",
+                        "pulse_count")
+
+
+def paper_results(graph, codes, walls=None):
+    """Everything the paper layer computes for one net from its codes:
+    `simulate_aras` in the five variants, `simulate_tpu`,
+    `upper_bound_cycles` and the BRW schedule with `validate_schedule`'s
+    findings, as plain values (instructions and bank plans as tuples).
+    Appends each `simulate_aras` call's host wall to `walls`."""
+    import dataclasses
+    from repro_torch.core.resources import AcceleratorConfig
+    from repro_torch.core.scheduler import build_schedule, validate_schedule
+    from repro_torch.sim.aras import (ArasSimConfig, simulate_aras,
+                                      upper_bound_cycles)
+    from repro_torch.sim.tpu import simulate_tpu
+
+    def fields(r):
+        out = {f.name: getattr(r, f.name) for f in dataclasses.fields(r)}
+        out["instructions"] = [dataclasses.astuple(i)
+                               for i in r.instructions]
+        return out
+
+    out = {}
+    for v in PAPER_VARIANTS:
+        t0 = time.perf_counter()
+        r = simulate_aras(graph, codes, ArasSimConfig.variant(v))
+        if walls is not None:
+            walls.append(time.perf_counter() - t0)
+        out[v] = fields(r)
+    out["tpu"] = dataclasses.asdict(simulate_tpu(graph))
+    out["upper_bound_cycles"] = upper_bound_cycles(graph, AcceleratorConfig())
+    sched = build_schedule(graph, codes, ArasSimConfig.variant("BRW"))
+    out["schedule"] = {
+        "encodings": [(e.name, e.offset, e.clip_rate, e.hist.tolist())
+                      for e in sched.encodings],
+        "reuse_center": sched.reuse_center,
+        "bank_plan": {k: dataclasses.astuple(b)
+                      for k, b in sched.bank_plan.items()},
+        "predicted": fields(sched.predicted),
+        "errors": validate_schedule(sched)}
+    return out
+
+
+def hist_pass_ms(torch, codes):
+    """Device time of one histogram pass over a net's codes: the 256-bin
+    `bincount` of every layer, as `encode_network` counts them."""
+    return cuda_ms(lambda: [torch.bincount(c.reshape(-1), minlength=256)
+                            for _, c in codes], 3)
+
+
+def pulses_vs_expectation(torch, codes, encodings):
+    """13b: for each pair of consecutive layers (a, b) under BRW, the
+    first min(n_a, n_b) codes of each shifted by its layer's offset with
+    the reference's clip, b's overwriting a's.  The pulse_count kernel's
+    totals must equal the plain version's.  Returns, for every pair,
+    (|z|, z, pair, n, pulses per weight, expected): z is the distance of
+    pulses per weight from `expected_pulses_per_weight` of the two
+    layers' histograms in standard errors (the per-weight sample standard
+    deviation over sqrt(n)); the caller holds |z| to PULSE_Z_MAX."""
+    from repro_torch.core.weight_reuse import expected_pulses_per_weight
+    from repro_torch.kernels.pulse_count.ops import pulse_count
+    from repro_torch.kernels.pulse_count.ref import pulse_count_plain
+    from repro_torch.xbar.cells import cell_deltas
+
+    def shifted(c, off):
+        return torch.clamp(c.to(torch.int16) + off, 0, 255).to(torch.uint8)
+
+    zs = []
+    for (name_a, a), (name_b, b), ea, eb in zip(
+            codes[:-1], codes[1:], encodings[:-1], encodings[1:]):
+        n = min(a.numel(), b.numel())
+        old = shifted(a, ea.offset)[:n].contiguous()
+        new = shifted(b, eb.offset)[:n].contiguous()
+        got = [int(t) for t in pulse_count(old, new)]
+        want = [int(t) for t in pulse_count_plain(old, new)]
+        if got != want:
+            raise AssertionError(f"pulse_count {name_a} -> {name_b}: kernel "
+                                 f"{got} vs plain {want}")
+        per_weight = cell_deltas(old, new).abs().sum(-1, dtype=torch.float64)
+        if int(per_weight.sum()) != got[0]:
+            raise AssertionError(f"pulse_count {name_a} -> {name_b}: total "
+                                 f"{got[0]} vs per-weight sum")
+        se = per_weight.std().item() / n ** 0.5
+        expected = expected_pulses_per_weight(ea.hist, eb.hist)
+        z = (got[0] / n - expected) / se
+        zs.append((abs(z), z, f"{name_a} -> {name_b}", n, got[0] / n,
+                   expected))
+    return zs
+
+
+def run_example(torch, name):
+    """Load examples/<name>.py by path, run its main() on the card with
+    the launch counts zeroed just before, and log what it prints.
+    Returns (launches, seconds)."""
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    buf = io.StringIO()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main("cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"  {name}| {line}")
+    log(f"{name}: {seconds:.1f} s, launches {json.dumps(launches)}")
+    return launches, seconds
+
+
+def paper_layer(torch, card):
+    """Phase 13: the ARAS paper layer.  (a) each of the five paper nets
+    with its seeded codes at PAPER_SAMPLES on the card through the five
+    variants, the TPU-like baseline, the upper bound and the BRW schedule
+    (which must validate), every result equal to the same calls with the
+    codes on the CPU, the speedup and center as PAPER_EXPECTED; (b)
+    `pulses_vs_expectation` on PULSE_NETS; (c) the three example arms in
+    this process.  Returns ({run: launches}, numbers for the log)."""
+    from repro_torch.core.weight_reuse import encode_network
+    from repro_torch.models import PAPER_NETS, build_net, synth_layer_codes
+    t_phase = time.perf_counter()
+    launches, summary, kept = {}, {}, {}
+    zero_launch_counts()
+    for name in PAPER_NETS:
+        graph = build_net(name)
+        t0 = time.perf_counter()
+        codes = synth_layer_codes(graph, max_samples=PAPER_SAMPLES,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        walls = []
+        got = paper_results(graph, codes, walls)
+        plain = paper_results(graph, [(n, c.cpu()) for n, c in codes])
+        for key in plain:
+            if got[key] != plain[key]:
+                raise AssertionError(f"{name}: {key} with the codes on the "
+                                     f"card differs from the CPU path's")
+        if got["schedule"]["errors"]:
+            raise AssertionError(f"{name}: invalid BRW schedule: "
+                                 f"{got['schedule']['errors'][:3]}")
+        base, brw = got["baseline"], got["BRW"]
+        speedup = base["makespan_s"] / brw["makespan_s"]
+        center = brw["reuse_center"]
+        if (round(speedup, 2), center) != PAPER_EXPECTED[name]:
+            raise AssertionError(f"{name}: speedup {speedup:.4f}, center "
+                                 f"{center}; expected {PAPER_EXPECTED[name]}")
+        hist_ms = hist_pass_ms(torch, codes)
+        n_codes = sum(c.numel() for _, c in codes)
+        summary[name] = {
+            "layers": len(graph), "weights": graph.total_weights,
+            "codes": n_codes,
+            "makespan_ms_model": {v: got[v]["makespan_s"] * 1e3
+                                  for v in PAPER_VARIANTS},
+            "speedup_brw_vs_baseline": speedup,
+            "pulse_ratio": brw["total_pulses"] / base["total_pulses"],
+            "energy_ratio": brw["energy"]["total"] / base["energy"]["total"],
+            "center": center,
+            "tpu_vs_brw_makespan": got["tpu"]["makespan_s"]
+            / brw["makespan_s"],
+            "upper_bound_ms_model": got["upper_bound_cycles"] / 1e6,
+            "simulate_aras_wall_s": walls, "draw_s": draw_s,
+            "hist_pass_device_ms": hist_ms}
+        log(f"{name}: {len(graph)} layers, {graph.total_weights / 1e6:.1f}M "
+            f"weights, {n_codes:,} codes on the card; model makespans (ms, "
+            f"simulated ARAS) " + ", ".join(
+                f"{v} {got[v]['makespan_s'] * 1e3:.4f}"
+                for v in PAPER_VARIANTS)
+            + f"; BRW/baseline speedup {speedup:.4f}, pulses "
+            f"{summary[name]['pulse_ratio']:.4f}, energy "
+            f"{summary[name]['energy_ratio']:.4f}, center {center}, "
+            f"TPU-like/BRW makespan "
+            f"{summary[name]['tpu_vs_brw_makespan']:.4f}; host wall per "
+            f"simulate_aras {statistics.mean(walls):.4f} s (max "
+            f"{max(walls):.4f}), histogram pass {hist_ms:.4f} ms device "
+            f"time, draw {draw_s:.2f} s; equal to the CPU path")
+        if name in PULSE_NETS:
+            kept[name] = codes
+    launches["nets"] = launch_counts()
+
+    zero_launch_counts()
+    zs = []
+    for name in PULSE_NETS:
+        encodings, _ = encode_network(kept[name])
+        zs += pulses_vs_expectation(torch, kept[name], encodings)
+    launches["pulse_vs_expectation"] = launch_counts()
+    worst = max(zs)
+    log(f"pulse_count vs expected_pulses_per_weight over {len(zs)} "
+        f"consecutive pairs of {' and '.join(PULSE_NETS)} (BRW offsets): "
+        f"kernel equal to plain on every pair; largest |z| {worst[0]:.3f} "
+        f"at {worst[2]} (n {worst[3]:,}, {worst[4]:.5f} pulses/weight vs "
+        f"{worst[5]:.5f} expected); mean |z| "
+        f"{statistics.mean(z[0] for z in zs):.3f}; launches "
+        f"{json.dumps(launches['pulse_vs_expectation'])}")
+    if worst[0] > PULSE_Z_MAX:
+        raise AssertionError(f"pulse_count: {worst[2]} lies {worst[0]:.2f} "
+                             f"standard errors from the expectation")
+    if launches["pulse_vs_expectation"]["pulse_count"] != len(zs):
+        raise AssertionError(f"pulse_count: {len(zs)} pairs but "
+                             f"{launches['pulse_vs_expectation']} launches")
+    del kept
+    summary["pulse_z"] = {"pairs": len(zs), "max_abs_z": worst[0],
+                          "at": worst[2]}
+
+    for name in EXAMPLE_ARMS:
+        launches[name], summary[f"{name}_s"] = run_example(torch, name)
+    missing = [k for k in SERVE_STREAM_KERNELS
+               if not launches["serve_stream_torch"][k]]
+    if missing:
+        raise AssertionError(f"serve_stream_torch launched no {missing}")
+    log(f"phase 13 (ARAS paper layer): {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return launches, summary
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3634,6 +3884,11 @@ def main() -> int:
         {k: v for k, v in encoder.items() if k != "flash"}))
     hubert = encoder["flash"]
 
+    # phase 13: the ARAS paper layer (the paper's nets on the card, pulse
+    # counts against the simulator's expectation, the example arms)
+    paper_launches, paper_summary = paper_layer(torch, card)
+    log(f"phase 13 summary: {json.dumps(paper_summary)}")
+
     def family_fields(name):
         return {"families_launches": {
             arch: ({run: v[name] for run, v in runs.items()}
@@ -3650,7 +3905,11 @@ def main() -> int:
             arch: {run: v[name] for run, v in runs.items()}
             for arch, runs in mode_launches.items()}}
 
-    # phase 13: report
+    def paper_fields(name):
+        return {"paper_layer_launches": {
+            run: v[name] for run, v in paper_launches.items()}}
+
+    # phase 14: report
     def planes_fields(name):
         return {arm: launches[name]
                 for arm, launches in zip(("off", "on"), plane_launches)}
@@ -3682,7 +3941,8 @@ def main() -> int:
          "paligemma_plain_ms": vlm_paged[2],
          "paligemma_sdpa_gathered_ms": vlm_paged[3],
          "paligemma_bound_ms": vlm_paged[4][0],
-         "paligemma_bound_by": vlm_paged[4][1]},
+         "paligemma_bound_by": vlm_paged[4][1],
+         **paper_fields("paged_attention")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
@@ -3711,7 +3971,8 @@ def main() -> int:
          "hubert_bound_ms": hubert[4][0], "hubert_bound_by": hubert[4][1],
          **input_mode_fields("flash_attention"),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
-         "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"]},
+         "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"],
+         **paper_fields("flash_attention")},
         {"name": "delta_apply", "route": "cuda",
          "source": "src/repro_torch/kernels/delta_apply/csrc/delta_apply.cu",
          "replaces": "src/repro/kernels/delta_apply/kernel.py:21",
@@ -3722,7 +3983,8 @@ def main() -> int:
          "bound_by": delta[LAYER_CODES][4][1],
          "library_ms": delta[LAYER_CODES][3],
          "slot_launches": slot_launches["delta_apply"],
-         "planes_launches": planes_fields("delta_apply")},
+         "planes_launches": planes_fields("delta_apply"),
+         **paper_fields("delta_apply")},
         {"name": "pulse_count", "route": "cuda",
          "source": "src/repro_torch/kernels/pulse_count/csrc/pulse_count.cu",
          "replaces": "src/repro/kernels/pulse_count/kernel.py:32",
@@ -3733,7 +3995,8 @@ def main() -> int:
          "bound_by": pulses[LAYER_CODES][4][1], "library_ms": None,
          "two_tenant_launches": t_launches["pulse_count"],
          "slot_launches": cli_launches["pulse_count"],
-         "planes_launches": planes_fields("pulse_count")},
+         "planes_launches": planes_fields("pulse_count"),
+         **paper_fields("pulse_count")},
         {"name": "crossbar_mvm", "route": "cuda",
          "source": "src/repro_torch/kernels/crossbar_mvm/csrc/"
                    "crossbar_mvm.cu",
@@ -3742,7 +4005,8 @@ def main() -> int:
          "plain_ms": xb[2], "bound_ms": xb[4][0], "bound_by": xb[4][1],
          "library_ms": xb[3],
          "slot_launches": slot_launches["crossbar_mvm"],
-         "planes_launches": planes_fields("crossbar_mvm")},
+         "planes_launches": planes_fields("crossbar_mvm"),
+         **paper_fields("crossbar_mvm")},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)
