@@ -94,7 +94,9 @@ Phases (any failure exits non-zero before the last line):
      and paged with chunks of 256 under a 512-token budget: every request
      finishes inside the vocab, 27 flash launches a monolithic prefill, 0
      chunked, 0 paged launches (MLA decodes with no kernel), the paged
-     run's first tokens equal the slot run's, and a chunked first token
+     run's tokens and first decode step's MLA attention outputs equal the
+     slot run's (the absorbed decode in f64: slot and paged reduce over
+     552 and 4,480 positions), and a chunked first token
      that parts from them a near-tie the two routes' logits explain; the
      longest prompt's prefill logits against the plain versions within
      LOGIT_TOL with the MoE routing pinned to the kernel run's experts
@@ -151,7 +153,22 @@ Phases (any failure exits non-zero before the last line):
      expected pulses per weight; then the three example arms
      (`examples/*_torch.py`) in this process, serve_stream_torch launching
      paged, flash, delta_apply and pulse_count;
- 14. print the `kernels` JSON line, then the result line.
+ 14. training at minicpm-2b's full width (40 layers, vocab 122,753, tied
+     embeddings, WSD schedule, seeded random weights in the reference
+     trainer's dtypes): the training attention Function at B 4 x S 2,048
+     x H 36 x D 64 (the flash kernel's forward with its lse, the torch-op
+     FA-2 backward) against autograd through the plain version, with its
+     backward timed beside SDPA's forward + backward; three steps of
+     `python -m repro_torch.launch.train --batch 4 --seq 2048` in this
+     process (loss near ln V, gnorm finite, lr the WSD schedule's, 80
+     flash launches a step: the forward and its remat recompute, nothing
+     else launched; step walls, tokens/s, peak memory); make_train_step
+     three times on one batch (the loss falls; the last step profiled);
+     one step's loss and gradient through the kernels against the plain
+     versions (every leaf within 3e-2); and the trainer at smoke size
+     checkpointing and resuming on the card, the resumed lines equal to an
+     uninterrupted run's;
+ 15. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -161,6 +178,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -187,6 +205,10 @@ F32_TOL = 3e-4                 # f32 output: the reference's own tolerance
 # of full f32; one TF32 pass is ~1.6e-3 off at S 512 D 256.  So its checks
 # hold it ten times tighter than F32_TOL, where one pass fails.
 FLASH_F32_TOL = 3e-5
+# the flash kernels' lse (natural-log units) against the plain logsumexp:
+# both sum exact products of the same inputs in f32, in other orders, and
+# the kernels take exp2/log2 of the log2-scaled scores
+LSE_TOL = 1e-4
 # Logits after 28 bf16 layers: kernel and plain version round each layer's
 # attention output at different points (online vs two-pass softmax, f32 sums
 # in another order), which moves a few elements by one bf16 ulp (2**-8
@@ -566,6 +588,38 @@ def check_flash(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
             bound_ms(n_bytes, n_flops, TF32_FLOPS_PER_S / 3),
             {"one_pass_tf32_err": one_pass_err,
              "cuda_core_bound": bound_ms(n_bytes, n_flops, CORE_OPS_PER_S)})
+
+
+def check_flash_lse(torch, S, H, D, seed, Hkv=None, B=1, causal=True,
+                    dtype=None):
+    """The kernels' lse mode (the training forward) against the plain
+    version: `o` with lse bit for bit the `o` of the serving launch, and
+    within the check_flash tolerance of the plain `o`; lse (B, H, S) f32
+    within LSE_TOL of the plain logsumexp.  Returns (o err, lse err)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Hkv = Hkv or H
+    dtype = dtype or torch.bfloat16
+    tol = FLASH_F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    served = flash_attention(q, k, v, causal=causal)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not (torch.equal(out, served) and lse.shape == (B, H, S)
+            and lse.dtype == torch.float32 and torch.isfinite(lse).all()
+            and err <= tol and lse_err <= LSE_TOL):
+        raise AssertionError(f"flash_attention lse mode at B={B} S={S} H={H} "
+                             f"Hkv={Hkv} D={D} causal={causal} {dtype}: o "
+                             f"err {err}, lse err {lse_err}, o equal to the "
+                             f"serving launch's: {torch.equal(out, served)}")
+    return err, lse_err
 
 
 def _codes(torch, n, gen, dev):
@@ -2405,7 +2459,7 @@ def param_bytes(params):
 
 
 def family_serve(torch, cfg, params, requests, label, chunked=False,
-                 max_seq=SLOT_MAX_SEQ, **model_kw):
+                 max_seq=SLOT_MAX_SEQ, record=None, **model_kw):
     """`requests` through a one-tenant engine of `cfg` (8 rows of
     `max_seq`; the slot layout unless `model_kw` says otherwise; with
     `chunked`, chunks of CHUNK under a CHUNK_BUDGET-token budget), weights
@@ -2414,7 +2468,10 @@ def family_serve(torch, cfg, params, requests, label, chunked=False,
     prefill in each layer that takes it (`kernel_layers`; 0 chunked) and
     paged once a decode batch in each layer that takes it (MLA decodes
     with no kernel).  Returns (tokens by rid, launches, tokens per
-    second)."""
+    second).  With `record` (a dict), `decode_recorder` keeps every decode
+    step's logits and the first decode step's MLA attention outputs; the
+    host time it spends doing so is taken out of the tokens per second
+    (its clones, a (B, vocab) copy a step, stay queued on the card)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.serving import (EngineModel, SchedulerConfig,
@@ -2432,9 +2489,12 @@ def family_serve(torch, cfg, params, requests, label, chunked=False,
     torch.cuda.synchronize()
     zero_launch_counts()
     t0 = time.perf_counter()
-    eng.run()
+    with (decode_recorder(torch, eng, cfg.name, record) if record is not None
+          else contextlib.nullcontext()):
+        eng.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # the recorder's own host time is taken out of the clock
+    wall = time.perf_counter() - t0 - (record or {}).get("seconds", 0.0)
     launches = {"paged_attention": paged_attention.launches,
                 "flash_attention": flash_attention.launches}
     reqs = list(eng.requests.values())
@@ -2457,12 +2517,113 @@ def family_serve(torch, cfg, params, requests, label, chunked=False,
         f"{n_tok / wall:.1f} tok/s; {len(eng.metrics.steps)} steps, "
         f"{decode_batches} decode batches, {prefills} prefills, "
         f"{eng.summary().get('prefill_chunks', 0):.0f} chunks; launches "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}"
+        + (f"; recorder's {record['seconds']:.3f} s of host time taken out"
+           if record is not None else ""))
     tokens = {r.rid: list(r.generated) for r in reqs}
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return tokens, launches, n_tok / wall
+
+
+def decode_recorder(torch, eng, name, out):
+    """A patch of `nn.model.forward` and `nn.attention._mla_absorbed` for
+    one engine run: each decode step appends ({row: rid} of its running
+    rows, its logits (B, vocab) kept on the card) to out["logits"], and
+    the first decode step's absorbed MLA attention outputs, one a layer,
+    go to out["attn"].  out["seconds"] adds up the host time the patch
+    spends beyond the calls it wraps."""
+    from repro_torch.nn import attention as attn_mod
+    from repro_torch.nn import model as model_mod
+    from repro_torch.serving import RequestStatus
+    real_forward, real_absorbed = model_mod.forward, attn_mod._mla_absorbed
+    out.update(logits=[], attn=[], seconds=0.0)
+
+    def forward(params, batch, cfg, **kw):
+        res = real_forward(params, batch, cfg, **kw)
+        t0 = time.perf_counter()
+        if torch.is_tensor(kw.get("cache_pos")):
+            arena = eng.arenas[name]
+            rows = {s: arena.owner_of(s) for s in arena.active_slots()
+                    if eng.requests[arena.owner_of(s)].status
+                    is RequestStatus.RUNNING}
+            out["logits"].append((rows, res[0][:, 0, :cfg.vocab].clone()))
+        out["seconds"] += time.perf_counter() - t0
+        return res
+
+    def absorbed(*args, **kw):
+        o = real_absorbed(*args, **kw)
+        t0 = time.perf_counter()
+        if not out["logits"]:
+            out["attn"].append(o.to(torch.bfloat16).clone())
+        out["seconds"] += time.perf_counter() - t0
+        return o
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(model_mod, "forward", forward))
+    stack.enter_context(mock.patch.object(attn_mod, "_mla_absorbed",
+                                          absorbed))
+    return stack
+
+
+def bf16_ulps(torch, a, b):
+    """Per element, how many bf16 steps apart two bf16 tensors are."""
+    ia, ib = (t.view(torch.int16).int() for t in (a, b))
+    # the sign-magnitude bits as a monotone integer line
+    ia = torch.where(ia < 0, -32768 - ia, ia)
+    ib = torch.where(ib < 0, -32768 - ib, ib)
+    return (ia - ib).abs()
+
+
+def mla_parting(torch, cfg, requests, tokens, recs):
+    """Where deepseek's slot and paged runs part (ROADMAP queue 3): for
+    each greedy request, the first decode step whose token differs, the
+    parted pick's logit lead in each run and the two runs' logit gap at
+    that step; and, at the first decode step, how many bf16 ulps apart
+    the two runs' MLA attention outputs are in each layer (layers 0 and 1
+    attend before any routing).  Returns the numbers logged."""
+    def row_of(rec, rid):
+        return next(r for r, q in rec[0].items() if q == rid)
+
+    parts = {}
+    for rid, (_, _, sampling) in enumerate(requests):
+        a, b = tokens["slot"][rid], tokens["paged"][rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None or sampling or j == 0:
+            parts[rid] = j if not sampling else "sampled"
+            continue
+        step = {}
+        for run in ("slot", "paged"):
+            seen = [rec for rec in recs[run]["logits"]
+                    if rid in rec[0].values()]
+            rec = seen[j - 1]                 # token j: decode step j - 1
+            step[run] = rec[1][row_of(rec, rid)].float()
+        ls, lp = step["slot"], step["paged"]
+        parts[rid] = {
+            "step": j, "tokens": [a[j], b[j]],
+            "slot_lead": (ls[a[j]] - ls[b[j]]).item(),
+            "paged_lead": (lp[b[j]] - lp[a[j]]).item(),
+            "logit_gap": (ls - lp).abs().max().item(),
+            "logit_scale": ls.abs().max().item()}
+    first = {}
+    sr = {q: r for r, q in recs["slot"]["logits"][0][0].items()}
+    pr = {q: r for r, q in recs["paged"]["logits"][0][0].items()}
+    common = sorted(set(sr) & set(pr))
+    for layer, (x, y) in enumerate(zip(recs["slot"]["attn"],
+                                       recs["paged"]["attn"])):
+        xs, ys = x[[sr[q] for q in common]], y[[pr[q] for q in common]]
+        u = bf16_ulps(torch, xs, ys)
+        rel = ((xs.float() - ys.float()).abs().max()
+               / xs.float().abs().max()).item()
+        first[layer] = (int(u.max()), (u > 0).float().mean().item(), rel)
+    log(f"{cfg.name} slot vs paged decode: first parting per request "
+        f"{json.dumps(parts)}")
+    log(f"{cfg.name} first decode step ({len(common)} rows in both runs), "
+        f"MLA attention outputs slot vs paged, (max bf16 ulps, share "
+        f"differing, max abs difference / max abs output) by layer: "
+        f"{json.dumps(first)}")
+    return {"parts": parts, "attn_ulps": first}
 
 
 def recording_route(picks):
@@ -2745,11 +2906,13 @@ def families(torch):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     requests = phase3_requests(cfg.vocab)
     n_pages = 8 * -(-SLOT_MAX_SEQ // 16)
-    runs = {}
+    runs, recs = {}, {"slot": {}, "paged": {}}
     runs["slot"] = family_serve(torch, cfg, params, requests,
-                                f"{cfg.name} slot engine")
+                                f"{cfg.name} slot engine",
+                                record=recs["slot"])
     runs["paged"] = family_serve(torch, cfg, params, requests,
                                  f"{cfg.name} paged engine (page 16)",
+                                 record=recs["paged"],
                                  kv_layout="paged", page_size=16,
                                  n_pages=n_pages)
     runs["chunked"] = family_serve(
@@ -2768,6 +2931,16 @@ def families(torch):
     if first["paged"] != len(requests):
         raise AssertionError(f"{cfg.name}: the paged run's first tokens, "
                              f"from the same monolithic prefill, differ")
+    parting = mla_parting(torch, cfg, requests,
+                          {k: v[0] for k, v in runs.items()}, recs)
+    del recs
+    # the absorbed decode runs in f64, so the slot and paged
+    # runs, which reduce over 552 and 4,480 positions, stay bit for bit
+    worst = max(u for u, _, _ in parting["attn_ulps"].values())
+    if worst > 1 or whole["paged"] != len(requests):
+        raise AssertionError(f"{cfg.name}: slot and paged decodes part "
+                             f"(attention {worst} ulps apart, whole "
+                             f"requests {whole['paged']})")
     for rid, toks in runs["chunked"][0].items():
         if toks[0] != slot_toks[rid][0]:
             chunk_first_token_tie(torch, cfg, params, rid, requests[rid],
@@ -2785,6 +2958,7 @@ def families(torch):
                              f"plain versions differ by {pinned_err}")
     decode = mla_decode_profile(torch, cfg, params, requests)
     decode["serve_tok_s"] = {k: v[2] for k, v in runs.items()}
+    decode["slot_vs_paged"] = parting
     launches = {MLA_ARCH: {k: v[1] for k, v in runs.items()}}
     del params
     gc.collect()
@@ -3591,6 +3765,349 @@ def paper_layer(torch, card):
 
 
 
+# ------------------------------------------------------------ phase 14
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_B, TRAIN_S = 4, 2048     # the CLI's --batch and --seq at full width
+TRAIN_STEPS = 3
+# the Function's gradients are bf16 like its inputs: each of dq, dk, dv
+# within KERNEL_TOL of the plain route's, relative to its largest element
+GRAD_TOL = KERNEL_TOL
+# a whole model's gradient, kernels against plain versions: every leaf
+# within the CPU parity tests' 3e-2 in relative norm
+LEAF_TOL = 3e-2
+TRAIN_DIR = os.path.join(ROOT, "build", "phase14")
+# Adam's first updates move every weight by about the lr; at full width
+# and with no warmup, the CLI's 3e-4 overshoots on one batch (this check
+# saw 11.88 -> 12.64 -> 20.39 there) and 1e-5 falls (11.88 -> 10.20 ->
+# 9.00).  The reference overshoots too: tests/train_lr_study.py runs both
+# packages at minicpm-2b's widths (4 layers, vocab 8,192) on the CPU, and
+# at 3e-4 both rise (9.195 -> 13.81 -> 12.28), at 1e-5 both fall
+FALL_LR = 1e-5
+
+
+def train_lines(out):
+    """{step: (loss, ce, gnorm, lr string, ms)} from the trainer's lines."""
+    rx = re.compile(r"step\s+(\d+) loss=(\S+) ce=(\S+) gnorm=(\S+) "
+                    r"lr=(\S+)\s+(\S+) ms")
+    return {int(m.group(1)): (float(m.group(2)), float(m.group(3)),
+                              float(m.group(4)), m.group(5),
+                              float(m.group(6)))
+            for m in rx.finditer(out)}
+
+
+def run_trainer(*argv):
+    """`python -m repro_torch.launch.train` in this process (so its
+    launches are counted here); returns its standard output."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(list(argv))
+    return buf.getvalue()
+
+
+def check_function(torch, B=TRAIN_B, S=TRAIN_S, H=36, D=64, seed=14):
+    """The training attention Function at minicpm-2b's shape (G 1, causal):
+    the kernel route's o, lse, dq, dk and dv against a plain route
+    (autograd through the plain version; its logsumexp), then the times
+    of the kernel forward with and without lse, the torch-op backward,
+    the plain route and SDPA forward + backward, and the backward's
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.nn.flash import flash_attention_train, flash_backward
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.launches
+    o = flash_attention_train(*leaves, True)
+    o.backward(do)
+    if flash_attention.launches != before + 1:
+        raise AssertionError("the Function's forward is not one launch")
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o_p = flash_attention_plain(*plain, True)
+    o_p.backward(do)
+    _, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    _, lse_p = flash_attention_plain(q, k, v, True, return_lse=True)
+    errs = {"o": (o.float() - o_p.float()).abs().max().item(),
+            "lse": (lse - lse_p).abs().max().item()}
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, plain):
+        scale = max(1.0, b.grad.float().abs().max().item())
+        errs[name] = (a.grad.float() - b.grad.float()).abs().max().item() \
+            / scale
+        if a.grad.dtype != torch.bfloat16:
+            raise AssertionError(f"{name} is {a.grad.dtype}")
+    if not (errs["o"] <= KERNEL_TOL and errs["lse"] <= LSE_TOL and
+            max(errs[n] for n in ("dq", "dk", "dv")) <= GRAD_TOL):
+        raise AssertionError(f"the Function disagrees with the plain route "
+                             f"at B{B} S{S} H{H} D{D}: {errs}")
+    o_k, lse_k = flash_attention(q, k, v, causal=True, return_lse=True)
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+    lse_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             return_lse=True), 10)
+    bwd_ms = cuda_ms(lambda: flash_backward(q, k, v, o_k, lse_k, do, True),
+                     3)
+
+    def plain_fwd_bwd():
+        x = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        flash_attention_plain(*x, True).backward(do)
+
+    def sdpa_fwd_bwd():
+        x = [t.detach().transpose(1, 2).requires_grad_(True)
+             for t in (q, k, v)]
+        F.scaled_dot_product_attention(*x, is_causal=True).backward(
+            do.transpose(1, 2))
+
+    plain_ms = cuda_ms(plain_fwd_bwd, 3)
+    sdpa_ms = cuda_ms(sdpa_fwd_bwd, 10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 10)
+    pairs = S * (S + 1) // 2
+    fwd_bound = bound_ms(4 * B * S * H * D * 2, 4 * B * H * D * pairs)
+    # read q, k, v, o, do and lse once, write dq, dk, dv; five products
+    # over the causal pairs (s recomputed, dv, dp, dk, dq)
+    n_bytes = 8 * B * S * H * D * 2 + B * H * S * 4
+    bound = bound_ms(n_bytes, 10 * B * H * D * pairs)
+    log(f"training Function B{B} S{S} H{H} D{D} causal: errs "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+        f"kernel forward {fwd_ms:.4f} ms, with lse {lse_ms:.4f} ms (SDPA "
+        f"forward {sdpa_fwd_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms by "
+        f"{fwd_bound[1]}); torch-op "
+        f"backward {bwd_ms:.4f} ms (bound {bound[0]:.4f} ms by {bound[1]} "
+        f"at the bf16 rate, backward/bound {bwd_ms / bound[0]:.1f}); plain "
+        f"route forward + backward {plain_ms:.4f} ms; SDPA forward + "
+        f"backward {sdpa_ms:.4f} ms")
+    return {"errs": errs, "fwd_ms": fwd_ms, "lse_ms": lse_ms,
+            "fwd_bound": fwd_bound, "sdpa_fwd_ms": sdpa_fwd_ms,
+            "bwd_ms": bwd_ms, "bwd_bound": bound, "plain_ms": plain_ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms}
+
+
+def train_cli(torch, cfg):
+    """TRAIN_STEPS steps of the trainer CLI at full width, counts zeroed
+    just before: loss finite and in (0.2 ln V, 3 ln V), gnorm finite and
+    positive, lr the WSD schedule's, 2 flash launches a layer a step (the
+    forward and its remat recompute) and no other kernel."""
+    from repro_torch.optim import wsd
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_trainer("--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--batch", str(TRAIN_B), "--seq", str(TRAIN_S))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for line in out.splitlines():
+        log(f"  {line}")
+    lines = train_lines(out)
+    if sorted(lines) != list(range(TRAIN_STEPS)) or "done" not in out:
+        raise AssertionError(f"trainer printed {sorted(lines)}")
+    ln_v = math.log(cfg.vocab)
+    total = 100_000            # make_train_step's default, as the CLI's
+    for step, (loss, ce, gnorm, lr, _) in lines.items():
+        want_lr = float(wsd(step, peak_lr=3e-4, warmup=2000,
+                            stable=int(total * 0.8), decay=int(total * 0.1)))
+        if not (math.isfinite(loss) and 0.2 * ln_v < loss < 3 * ln_v
+                and math.isfinite(gnorm) and gnorm > 0
+                and lr == f"{want_lr:.2e}"):
+            raise AssertionError(f"step {step}: loss {loss}, gnorm {gnorm}, "
+                                 f"lr {lr} (want {want_lr:.2e})")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 2 * cfg.n_layers * TRAIN_STEPS
+    if launches != want:
+        raise AssertionError(f"trainer launches {launches}, want {want}")
+    walls = [lines[s][4] for s in sorted(lines)]
+    log(f"trainer {TRAIN_ARCH} B{TRAIN_B} S{TRAIN_S}: step walls "
+        f"{walls} ms ({TRAIN_B * TRAIN_S / walls[-1] * 1e3:.0f} tokens/s at "
+        f"the last), peak memory {peak / 2**30:.2f} GiB, launches "
+        f"{json.dumps(launches)}")
+    return launches, walls, peak
+
+
+def train_params(torch, cfg):
+    from repro_torch.launch.train import cast_for_training
+    from repro_torch.nn.model import init_params
+    return cast_for_training(init_params(cfg, seed=0, device="cuda"))
+
+
+def train_batch(torch, cfg, step=0):
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    nb = make_batch(cfg, DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B),
+                    step)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in nb.items()}
+
+
+def loss_falls(torch, cfg, params, batch):
+    """make_train_step(warmup=1) for TRAIN_STEPS updates on one repeated
+    batch (steps 1.. at the peak lr, FALL_LR): the loss must fall at every
+    step.  Each step timed (wall, ending in a synchronize), and the last
+    one profiled: its device time and the kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_flatten, tree_map
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, peak_lr=FALL_LR, warmup=1)
+    losses, walls = [], []
+    for step in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step < TRAIN_STEPS:
+            params, opt, m = step_fn(params, opt, batch, step)
+            losses.append(float(m["loss"]))
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt, m = step_fn(params, opt, batch, step)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    device_ms = _device_busy_s(prof) * 1e3
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"make_train_step on one batch: losses "
+                             f"{losses} do not fall")
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    log(f"make_train_step {TRAIN_ARCH} on one batch: losses {losses}; step "
+        f"walls {[f'{w:.1f}' for w in walls]} ms (the last profiled), its "
+        f"device busy {device_ms:.1f} ms ({device_ms / walls[-1]:.1%})")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
+        log(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
+            f"{e.key[:90]}")
+    # the optimizer alone: one AdamW update of every leaf (zero gradients
+    # do the same work), device time by CUDA events
+    grads = tree_map(torch.zeros_like, params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    adamw_update(params, grads, opt, 0.0)
+    end.record()
+    torch.cuda.synchronize()
+    opt_ms, opt_wall = start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+    del grads
+    # read p, g, m, v once, write p, m, v: 2 + 2 + 4 + 4 + 2 + 4 + 4 bytes
+    # an element (the 1-D f32 leaves are a rounding error)
+    n = sum(t.numel() for t in tree_flatten(params))
+    opt_bound = bound_ms(22 * n, 0)
+    log(f"AdamW alone over {n:,} params: {opt_ms:.1f} ms device, "
+        f"{opt_wall:.1f} ms wall (bound {opt_bound[0]:.2f} ms by "
+        f"{opt_bound[1]})")
+    return {"losses": losses, "walls_ms": walls, "device_ms": device_ms,
+            "adamw_ms": opt_ms, "adamw_bound_ms": opt_bound[0]}
+
+
+def grads_vs_plain(torch, cfg, params, batch):
+    """lm_loss and its gradient in every leaf through the kernels, then
+    with the training attention swapped for autograd through the plain
+    version, on the same params (the seeded init) and batch: the losses,
+    and every leaf within LEAF_TOL in relative norm."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.nn import attention as attn_mod
+    from repro_torch.nn.model import lm_loss
+    from repro_torch.tree import tree_flatten
+    leaves = tree_flatten(params)
+
+    def loss_and_grads():
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = lm_loss(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return float(loss.detach()), grads
+
+    loss_k, g_k = loss_and_grads()
+    with mock.patch.object(attn_mod, "flash_attention_train",
+                           lambda q, k, v, causal: flash_attention_plain(
+                               q, k, v, causal)):
+        loss_p, g_p = loss_and_grads()
+    rel = [((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30)).item() for a, b in zip(g_k, g_p)]
+    gn_k = math.sqrt(sum(float(g.float().square().sum()) for g in g_k))
+    gn_p = math.sqrt(sum(float(g.float().square().sum()) for g in g_p))
+    log(f"one step's loss and gradient, kernels vs plain: loss {loss_k:.6f} "
+        f"vs {loss_p:.6f}, grad norm {gn_k:.6f} vs {gn_p:.6f}, worst leaf "
+        f"relative norm {max(rel):.3g} (tolerance {LEAF_TOL})")
+    if not (abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+            and max(rel) <= LEAF_TOL):
+        raise AssertionError("training step: kernels and plain versions "
+                             "differ")
+    return {"loss": (loss_k, loss_p), "grad_norm": (gn_k, gn_p),
+            "worst_leaf_rel": max(rel)}
+
+
+def smoke_resume(torch):
+    """The trainer at smoke size on the card: 4 steps uninterrupted, and 2
+    steps, a checkpoint and a resume to 4; the resumed steps' lines equal
+    the uninterrupted run's (the ms column aside)."""
+    import shutil
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    argv = ("--arch", TRAIN_ARCH, "--smoke", "--batch", "2", "--seq", "64")
+    whole = run_trainer(*argv, "--steps", "4", "--ckpt-dir",
+                        os.path.join(TRAIN_DIR, "whole"), "--ckpt-every", "2")
+    cut = os.path.join(TRAIN_DIR, "cut")
+    run_trainer(*argv, "--steps", "2", "--ckpt-dir", cut)
+    resumed = run_trainer(*argv, "--steps", "4", "--ckpt-dir", cut)
+    a, b = train_lines(whole), train_lines(resumed)
+    if ("resumed from step 2" not in resumed or sorted(b) != [2, 3]
+            or any(a[s][:4] != b[s][:4] for s in b)):
+        raise AssertionError(f"resume on the card: {whole!r} vs {resumed!r}")
+    log(f"smoke checkpoint resume on the card: steps 2-3 "
+        f"{[b[s][:4] for s in (2, 3)]} equal the uninterrupted run's")
+    # the checkpoint alone: the smoke trainer state saved (blocking) and
+    # restored onto the card
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_flatten
+    params = train_params(torch, get_config(TRAIN_ARCH, smoke=True))
+    state = {"params": params, "opt": adamw_init(params)}
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_flatten(state))
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(TRAIN_DIR, "timed"), 1, state)
+    t1 = time.perf_counter()
+    restore_checkpoint(os.path.join(TRAIN_DIR, "timed"), 1, state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"checkpoint of the smoke trainer state ({n_bytes / 2**20:.1f} MiB, "
+        f"{len(tree_flatten(state))} leaves): save {(t1 - t0) * 1e3:.1f} ms, "
+        f"restore onto the card {(t2 - t1) * 1e3:.1f} ms (host wall)")
+    return {"save_ms": (t1 - t0) * 1e3, "restore_ms": (t2 - t1) * 1e3,
+            "bytes": n_bytes}
+
+
+def training(torch, card):
+    """Phase 14: training at minicpm-2b's full width."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    fn = check_function(torch)
+    torch.cuda.empty_cache()
+    launches, cli_walls, peak = train_cli(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, batch = train_params(torch, cfg), train_batch(torch, cfg)
+    vs_plain = grads_vs_plain(torch, cfg, params, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    falls = loss_falls(torch, cfg, params, batch)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = smoke_resume(torch)
+    secs = time.perf_counter() - t_phase
+    log(f"phase 14 (training): {secs:.1f} s ({card})")
+    return launches, {"function": fn, "cli_walls_ms": cli_walls,
+                      "cli_peak_gib": peak / 2**30,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / cli_walls[-1] * 1e3,
+                      "loss_falls": falls, "vs_plain": vs_plain,
+                      "smoke_checkpoint": ckpt, "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3745,6 +4262,20 @@ def main() -> int:
             log(f"flash_attention f32 B2 S200 H4 Hkv2 D{D} "
                 f"{'causal' if causal else 'full'} (GQA, ragged): err "
                 f"{err:.3g}")
+    # the lse mode (the training forward) of both kernels: every native
+    # head dim and a padded one in bf16, causal and full, and f32
+    lse_errs = []
+    for dtype, dims in ((None, (32, 64, 128, 256, 80)), (f32, (64, 80, 256))):
+        for D in dims:
+            for causal in (True, False):
+                errs = check_flash_lse(torch, S=200, H=4, D=D, seed=D + 7,
+                                       Hkv=2, B=2, causal=causal,
+                                       dtype=dtype)
+                lse_errs.append(errs[1])
+                log(f"flash_attention {'f32' if dtype else 'bf16'} lse mode "
+                    f"B2 S200 H4 Hkv2 D{D} {'causal' if causal else 'full'}: "
+                    f"o err {errs[0]:.3g} (o equal to the serving launch's), "
+                    f"lse err {errs[1]:.3g}")
     flash32 = {}
     for Hkv in (16, 4):
         flash32[Hkv] = check_flash(torch, S=512, H=16, D=256, seed=512 + Hkv,
@@ -3889,6 +4420,11 @@ def main() -> int:
     paper_launches, paper_summary = paper_layer(torch, card)
     log(f"phase 13 summary: {json.dumps(paper_summary)}")
 
+    # phase 14: training at minicpm-2b's full width
+    train_launches, train_summary = training(torch, card)
+    log(f"phase 14 summary: {json.dumps(train_summary)}")
+    train_fn = train_summary["function"]
+
     def family_fields(name):
         return {"families_launches": {
             arch: ({run: v[name] for run, v in runs.items()}
@@ -3909,7 +4445,10 @@ def main() -> int:
         return {"paper_layer_launches": {
             run: v[name] for run, v in paper_launches.items()}}
 
-    # phase 14: report
+    def training_fields(name):
+        return {"training_launches": train_launches[name]}
+
+    # report
     def planes_fields(name):
         return {arm: launches[name]
                 for arm, launches in zip(("off", "on"), plane_launches)}
@@ -3942,7 +4481,8 @@ def main() -> int:
          "paligemma_sdpa_gathered_ms": vlm_paged[3],
          "paligemma_bound_ms": vlm_paged[4][0],
          "paligemma_bound_by": vlm_paged[4][1],
-         **paper_fields("paged_attention")},
+         **paper_fields("paged_attention"),
+         **training_fields("paged_attention")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
@@ -3972,7 +4512,21 @@ def main() -> int:
          **input_mode_fields("flash_attention"),
          "f32_bound_cuda_cores_ms": flash32[16][5]["cuda_core_bound"][0],
          "f32_one_pass_tf32_err": flash32[16][5]["one_pass_tf32_err"],
-         **paper_fields("flash_attention")},
+         **paper_fields("flash_attention"),
+         **training_fields("flash_attention"),
+         "lse_max_abs_err": max(lse_errs + [train_fn["errs"]["lse"]]),
+         "training_shape": f"B{TRAIN_B} S{TRAIN_S} H36 D64 causal",
+         "training_errs": train_fn["errs"],
+         "training_fwd_ms": train_fn["fwd_ms"],
+         "training_lse_ms": train_fn["lse_ms"],
+         "training_fwd_bound_ms": train_fn["fwd_bound"][0],
+         "training_fwd_bound_by": train_fn["fwd_bound"][1],
+         "training_sdpa_fwd_ms": train_fn["sdpa_fwd_ms"],
+         "training_backward_ms": train_fn["bwd_ms"],
+         "training_backward_bound_ms": train_fn["bwd_bound"][0],
+         "training_backward_bound_by": train_fn["bwd_bound"][1],
+         "training_plain_fwd_bwd_ms": train_fn["plain_ms"],
+         "training_sdpa_fwd_bwd_ms": train_fn["sdpa_fwd_bwd_ms"]},
         {"name": "delta_apply", "route": "cuda",
          "source": "src/repro_torch/kernels/delta_apply/csrc/delta_apply.cu",
          "replaces": "src/repro/kernels/delta_apply/kernel.py:21",
@@ -3984,7 +4538,8 @@ def main() -> int:
          "library_ms": delta[LAYER_CODES][3],
          "slot_launches": slot_launches["delta_apply"],
          "planes_launches": planes_fields("delta_apply"),
-         **paper_fields("delta_apply")},
+         **paper_fields("delta_apply"),
+         **training_fields("delta_apply")},
         {"name": "pulse_count", "route": "cuda",
          "source": "src/repro_torch/kernels/pulse_count/csrc/pulse_count.cu",
          "replaces": "src/repro/kernels/pulse_count/kernel.py:32",
@@ -3996,7 +4551,8 @@ def main() -> int:
          "two_tenant_launches": t_launches["pulse_count"],
          "slot_launches": cli_launches["pulse_count"],
          "planes_launches": planes_fields("pulse_count"),
-         **paper_fields("pulse_count")},
+         **paper_fields("pulse_count"),
+         **training_fields("pulse_count")},
         {"name": "crossbar_mvm", "route": "cuda",
          "source": "src/repro_torch/kernels/crossbar_mvm/csrc/"
                    "crossbar_mvm.cu",
@@ -4006,7 +4562,8 @@ def main() -> int:
          "library_ms": xb[3],
          "slot_launches": slot_launches["crossbar_mvm"],
          "planes_launches": planes_fields("crossbar_mvm"),
-         **paper_fields("crossbar_mvm")},
+         **paper_fields("crossbar_mvm"),
+         **training_fields("crossbar_mvm")},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

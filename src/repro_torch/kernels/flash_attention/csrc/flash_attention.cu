@@ -55,6 +55,8 @@ constexpr int kStages = 3;     // K/V tiles in flight (3 x 64 KB at D = 256)
 constexpr int kThreads = 256;  // two warpgroups, alternate key tiles
 constexpr int kBox = 64 * 64 * 2;   // one 64-row x 64-column bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMaskedLse = -2.0e38f;   // the reference's NEG_INF
 
 typedef __nv_bfloat16 bf16;
 
@@ -122,8 +124,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
-                       bf16* __restrict__ out, int B, int Sq, int Skv, int H,
-                       int Hkv, int causal, float scale) {
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       int B, int Sq, int Skv, int H, int Hkv, int causal,
+                       float scale) {
   constexpr int NBX = boxes(D);
   constexpr int KS = D / 16;               // k-steps of Q·Kᵀ
   constexpr uint32_t kStageTx = 2 * NBX * kBox;
@@ -323,7 +326,14 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     const float mu = m == -INFINITY ? 0.f : m;
     a_self[r] = exp2f(m_r[r] - mu);
     a_other[r] = exp2f(m_o[r] - mu);
-    inv[r] = 1.f / fmaxf(l_r[r] * a_self[r] + l_o[r] * a_other[r], 1e-30f);
+    const float l = l_r[r] * a_self[r] + l_o[r] * a_other[r];
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+    // the row's log-sum-exp in natural-log units, for the backward pass:
+    // the merged statistics are in the log2 domain of scale·log2(e)
+    const int row = r ? row_b : row_a;
+    if (lse != nullptr && cq == 0 && row < Sq)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+          m == -INFINITY ? kMaskedLse : (mu + log2f(fmaxf(l, 1e-30f))) * kLn2;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -366,8 +376,8 @@ int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int Hkv, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Sq, int Skv, int H, int Hkv, int causal, float scale,
            cudaStream_t stream) {
   cudaError_t err;
   const EncodeTiled encode = tensor_map_encoder(&err);
@@ -384,8 +394,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long ctas = static_cast<long long>((Sq + kBQ - 1) / kBQ) * H * B;
   flash_attention_kernel<D><<<static_cast<unsigned>(ctas), kThreads, bytes,
-                              stream>>>(mq, mk, mv, static_cast<bf16*>(out), B,
-                                        Sq, Skv, H, Hkv, causal, scale);
+                              stream>>>(mq, mk, mv, static_cast<bf16*>(out),
+                                        lse, B, Sq, Skv, H, Hkv, causal,
+                                        scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,24 +404,32 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // q (B, Sq, H, D), k/v (B, Skv, Hkv, D), out (B, Sq, H, D), all bf16,
 // contiguous and 16-byte aligned, B, Sq, Skv >= 1; H % Hkv == 0.
-// causal != 0 masks key j for query i when j > i.  Returns 0 when the
-// launch was accepted, a cudaError_t otherwise, or 100000 + the CUresult
-// of a tensor map that could not be encoded.
+// causal != 0 masks key j for query i when j > i.  A non-null `lse`
+// (B, H, Sq) f32 receives each row's log-sum-exp of its scaled scores in
+// natural-log units (the backward pass's statistic; -2e38 for a row that
+// sees no key); null writes nothing more.  Returns 0 when the launch was
+// accepted, a cudaError_t otherwise, or 100000 + the CUresult of a tensor
+// map that could not be encoded.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int Sq,
-                                    int Skv, int H, int Hkv, int D,
-                                    int causal, float scale, void* stream) {
+                                    const void* v, void* out, void* lse,
+                                    int B, int Sq, int Skv, int H, int Hkv,
+                                    int D, int causal, float scale,
+                                    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, scale, s);
+      return launch<32>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                          Skv, H, Hkv, causal, scale, s);
     case 64:
-      return launch<64>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, scale, s);
+      return launch<64>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                          Skv, H, Hkv, causal, scale, s);
     case 128:
-      return launch<128>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, scale, s);
+      return launch<128>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                          Skv, H, Hkv, causal, scale, s);
     case 256:
-      return launch<256>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, scale, s);
+      return launch<256>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                          Skv, H, Hkv, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -69,12 +69,15 @@ constexpr int kKeys = 32;                     // keys per ring stage
 constexpr int kGroup = 4;                     // n tiles per P·V pass
 constexpr float kNegInf = -1.0e30f;           // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMaskedLse = -2.0e38f;        // the reference's NEG_INF
 
 struct Params {
   const float* q;
   const float* k;
   const float* v;
   float* out;
+  float* lse;  // (B, H, Sq) or null
   int B, Sq, Skv, H, Hkv, D, causal;
   float scale_log2;
 };
@@ -364,7 +367,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float mx = fmaxf(m[r], m1);
     w0[r] = exp2f(m[r] - mx);
     w1[r] = exp2f(m1 - mx);
-    inv[r] = 1.f / fmaxf(l[r] * w0[r] + l1 * w1[r], 1e-30f);
+    const float lt = l[r] * w0[r] + l1 * w1[r];
+    inv[r] = 1.f / fmaxf(lt, 1e-30f);
+    // the row's log-sum-exp in natural-log units (m is in the log2
+    // domain of scale·log2(e)), for the backward pass
+    const int i = wrow0 + gid + 8 * r;
+    if (p.lse != nullptr && tig == 0 && i < p.Sq)
+      p.lse[((size_t)b * p.H + h) * p.Sq + i] =
+          mx <= kNegInf ? kMaskedLse : (mx + log2f(fmaxf(lt, 1e-30f))) * kLn2;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -405,12 +415,15 @@ int launch(const Params& p, cudaStream_t stream) {
 // q (B, Sq, H, D), k/v (B, Skv, Hkv, D), out (B, Sq, H, D), all f32,
 // contiguous and 16-byte aligned; D a multiple of 8 in [8, 256] (no
 // padding: any such width is native here), B, Sq, Skv >= 1, H % Hkv == 0.
-// causal != 0 masks key j for query i when j > i.  Returns the cudaError_t
-// of the launch (0 = launched).
+// causal != 0 masks key j for query i when j > i.  A non-null `lse`
+// (B, H, Sq) f32 receives each row's log-sum-exp of its scaled scores in
+// natural-log units (-2e38 for a row that sees no key).  Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Skv, int H, int Hkv, int D,
-                                   int causal, float scale, void* stream) {
+                                   const void* v, void* out, void* lse,
+                                   int B, int Sq, int Skv, int H, int Hkv,
+                                   int D, int causal, float scale,
+                                   void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || H % Hkv != 0 || D % 8 != 0 ||
       D < 8 || D > 256 || (Sq + kBlockRows - 1) / kBlockRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -419,6 +432,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.out = static_cast<float*>(out);
+  p.lse = static_cast<float*>(lse);
   p.B = B;
   p.Sq = Sq;
   p.Skv = Skv;

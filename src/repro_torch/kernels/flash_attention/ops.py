@@ -8,7 +8,10 @@ split-TF32 kernel (`csrc/flash_attention_f32.cu`: each f32 operand split
 into a TF32 hi and lo, three `mma.sync` products per fragment, f32 sums;
 one TF32 pass would not hold the reference's 3e-4).
 `flash_attention.launches` counts kernel launches, of either kernel, and
-nothing else.
+nothing else.  With `return_lse` both kernels also write each row's f32
+log-sum-exp (B, H, Sq), the statistic the training backward
+(`repro_torch.nn.flash`) recomputes its probabilities from; without it
+they write `o` alone, as the serving path launches them.
 
 The bf16 kernel is built for head dims 32, 64, 128 and 256.  Any other
 multiple of 8 up to 256 is zero-padded along D to the next of those: zero
@@ -33,7 +36,7 @@ def _bind(library: str = "flash_attention"):
     symbol = ("flash_attention_f32" if library == "flash_attention_f32"
               else "flash_attention_bf16")
     fn = getattr(build.load(library), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -71,7 +74,7 @@ def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
     return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, return_lse: bool = False):
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     library = kernel_for(q, k, v)
@@ -84,23 +87,29 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     q, k, v = (aligned16(pad_head_dim(t, width).contiguous())
                for t in (q, k, v))
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out[..., :D]
+        return (out[..., :D], lse) if return_lse else out[..., :D]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _bind(library)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), B, Sq, Skv, H, Hkv, width,
+                             out.data_ptr(),
+                             lse.data_ptr() if return_lse else None,
+                             B, Sq, Skv, H, Hkv, width,
                              int(causal), 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{build.launch_error(err)}")
     flash_attention.launches += 1
-    return out if width == D else out[..., :D]
+    out = out if width == D else out[..., :D]
+    return (out, lse) if return_lse else out
 
 
-def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).  Returns (B, Sq, H, D) in
-    q's dtype.  Raises ValueError when H % Hkv != 0 or the batch, head dim
+    q's dtype; with `return_lse`, (o, lse (B, H, Sq) f32 in natural-log
+    units).  Raises ValueError when H % Hkv != 0 or the batch, head dim
     or K/V shapes disagree."""
     B, Sq, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
@@ -111,8 +120,8 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
             f"flash_attention: {H} query heads are not divisible by "
             f"{k.shape[2]} KV heads — GQA grouping needs H % Hkv == 0")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    return _launch(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, return_lse=return_lse)
+    return _launch(q, k, v, causal, return_lse)
 
 
 flash_attention.launches = 0

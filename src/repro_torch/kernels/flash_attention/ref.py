@@ -10,10 +10,14 @@ import torch
 
 
 def flash_attention_plain(q, k, v, causal: bool = True,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """q (B, Sq, H, D); k/v (B, Skv, Hkv, D) with H % Hkv == 0.  Returns
     (B, Sq, H, D) in q's dtype.  Causal masks key j for query i when
-    j > i.  `scale` multiplies the scores (default 1/sqrt(D))."""
+    j > i.  `scale` multiplies the scores (default 1/sqrt(D)).  With
+    `return_lse` it returns (o, lse): lse (B, H, Sq) f32, each row's
+    log-sum-exp of its scaled scores (`repro.nn.flash._attend_fwd`'s
+    `m + log(l)`)."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -27,4 +31,7 @@ def flash_attention_plain(q, k, v, causal: bool = True,
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    o = o.reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)

@@ -1,5 +1,5 @@
-"""Serving step functions — PyTorch port of the serving half of
-`repro.launch.steps`.
+"""Step functions — PyTorch port of `repro.launch.steps`: the training
+step and the serving steps.
 
 The reference wraps each step in a cached `jax.jit`.  PyTorch runs
 eagerly, so the steps are plain functions; the prefill steps keep the
@@ -16,9 +16,53 @@ import torch
 
 from repro_torch.nn.attention import _kv_quant
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.model import chunk_prefill, decode_step, prefill
+from repro_torch.nn.model import chunk_prefill, decode_step, lm_loss, prefill
 from repro_torch.nn.transformer import stack_plan
+from repro_torch.optim.adamw import AdamWState, adamw_update
+from repro_torch.optim.schedules import cosine, wsd
 from repro_torch.serving.sampling import sample_tokens
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+
+# ----------------------------------------------------------------- train
+def make_train_step(cfg: ModelConfig, peak_lr: float = 3e-4,
+                    warmup: int = 2000, total: int = 100_000):
+    """The reference's `make_train_step`: WSD for the minicpm family
+    (stable 80% of `total`, decay 10%), cosine otherwise.  The step
+    `(params, opt_state, batch, step) -> (params, opt_state, metrics)`
+    takes the loss's gradient in every param leaf (autograd through
+    `lm_loss`, each block rematerialized) and applies AdamW in place;
+    metrics hold loss, lr, ce, aux, tokens and grad_norm as 0-d
+    tensors."""
+    if cfg.name.startswith("minicpm"):
+        sched = functools.partial(wsd, peak_lr=peak_lr, warmup=warmup,
+                                  stable=int(total * 0.8),
+                                  decay=int(total * 0.1))
+    else:
+        sched = functools.partial(cosine, peak_lr=peak_lr, warmup=warmup,
+                                  total=total)
+
+    def train_step(params, opt_state: AdamWState, batch, step):
+        leaves = tree_flatten(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, metrics = lm_loss(params, batch, cfg)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        grads = tree_unflatten(params, [
+            torch.zeros_like(t) if g is None else g
+            for t, g in zip(leaves, grads)])
+        lr = sched(step)
+        new_params, new_opt, om = adamw_update(params, grads, opt_state, lr)
+        out = {"loss": loss.detach(), "lr": lr,
+               **{k: v.detach() for k, v in metrics.items()}, **om}
+        return new_params, new_opt, out
+
+    return train_step
 
 
 def prefill_step(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -54,11 +54,22 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.flash import flash_attention_train
 from repro_torch.nn.layers import apply_rope, rmsnorm, rope_angles
 
 Params = Dict[str, Any]
 
 NEG_INF = -2.0e38
+
+
+def _flash(q, k, v, causal: bool) -> torch.Tensor:
+    """The flash kernel's route: under autograd (training) through the
+    `nn.flash` Function, whose backward is the reference's flash VJP;
+    otherwise (serving, `torch.no_grad`) the kernel's wrapper alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_train(q, k, v, causal)
+    return flash_attention(q, k, v, causal=causal)
 
 
 # =================================================================== masks
@@ -306,8 +317,7 @@ def attention(
         if (layer_window <= 0 and cfg.logit_softcap <= 0
                 and not (cfg.causal and prefix_len)):
             # causal prefix-free layers, and an encoder's full attention
-            o = flash_attention(q.reshape(B, S, H, D), k, v,
-                                causal=cfg.causal)
+            o = _flash(q.reshape(B, S, H, D), k, v, cfg.causal)
             o = o.reshape(B, S, Hkv, H // Hkv, D)
         elif S <= 1024:
             mask = _mask(positions, positions, causal=cfg.causal,
@@ -535,25 +545,35 @@ def _paged_scatter_gqa(cache, k, v, cfg: ModelConfig, cache_pos, page_table):
 
 # ==================================================================== MLA
 def _mla_absorbed(params, q_nope, q_rope, ckv, kr, valid, cfg: ModelConfig):
-    """Absorbed-matmul decode attention (DeepSeek-V2's low-rank KV), all in
-    f32 in the reference's order: W_uk folded into the query, the score
+    """Absorbed-matmul decode attention (DeepSeek-V2's low-rank KV) in the
+    reference's order: W_uk folded into the query, the score
     q_eff·c_kv + q_rope·k_rope and only then the scale, the masked softmax,
     the context over the latents and W_uv last.  q_nope/q_rope (B, S, H,
     ·), ckv (B, L, r) and kr (B, L, rope) the latent cache in position
-    order, valid (B|1, S, L) -> (B, S, H, v_head_dim) f32."""
+    order, valid (B|1, S, L) -> (B, S, H, v_head_dim) f32.
+
+    The math runs in f64 and rounds to f32 at the end.  Slot decode
+    attends over the slot's row (max_seq positions) and paged decode over
+    the gathered table (T·page positions); an f32 reduction takes its
+    terms in an order set by that length, so in f32 the masked tail moved
+    the result (on the CPU at 302 against 552 positions; on the card the
+    slot and paged routes' bf16 outputs came out up to 2 ulps apart at
+    layer 0 of deepseek-v2-lite-16b and parted greedy tokens at
+    near-ties).  In f64 every length rounds to the same f32."""
     H, r = cfg.n_heads, cfg.kv_lora_rank
     nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
-    w_uk = params["w_uk"].float().reshape(r, H, nope)
-    w_uv = params["w_uv"].float().reshape(r, H, cfg.v_head_dim)
-    ckv = ckv.float()
-    q_eff = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+    f64 = torch.float64
+    w_uk = params["w_uk"].to(f64).reshape(r, H, nope)
+    w_uv = params["w_uv"].to(f64).reshape(r, H, cfg.v_head_dim)
+    ckv = ckv.to(f64)
+    q_eff = torch.einsum("bshn,rhn->bshr", q_nope.to(f64), w_uk)
     s = torch.einsum("bshr,bkr->bhsk", q_eff, ckv)
-    s = s + torch.einsum("bshd,bkd->bhsk", q_rope.float(), kr.float())
+    s = s + torch.einsum("bshd,bkd->bhsk", q_rope.to(f64), kr.to(f64))
     s = s * (1.0 / math.sqrt(nope + rope_d))
     s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhsk,bkr->bshr", p, ckv)
-    return torch.einsum("bshr,rhv->bshv", ctx, w_uv)
+    return torch.einsum("bshr,rhv->bshv", ctx, w_uv).float()
 
 
 def _mla_attention(params, x, cfg: ModelConfig, *, positions, cache,
@@ -627,7 +647,7 @@ def _mla_attention(params, x, cfg: ModelConfig, *, positions, cache,
                                 0.0)[:, :, :, 0]
         elif cfg.causal:
             vp = torch.nn.functional.pad(vv, (0, nope + rope_d - vdim))
-            o = flash_attention(qq, k, vp, causal=True)[..., :vdim]
+            o = _flash(qq, k, vp, True)[..., :vdim]
         else:
             mask = _mask(positions, positions, causal=False, window=0,
                          prefix_len=0)

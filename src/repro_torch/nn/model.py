@@ -1,14 +1,16 @@
 """Top-level model — PyTorch port of `repro.nn.model` (attention, hybrid
 attention ∥ Mamba, and xLSTM stacks): embeddings → stack → norm →
-logits, plus the serving entry points: monolithic prefill, chunked
-prefill into a staging cache, and decode over contiguous (slot) or paged
-caches.
+logits, the training loss (`lm_loss`), and the serving entry points:
+monolithic prefill, chunked prefill into a staging cache, and decode over
+contiguous (slot) or paged caches.
 
 Input contract of `forward` and `prefill` (the `batch` dict), as the
 reference's:
   tokens        (B, S) int           — LM families
   embeds        (B, S, d_model)      — stubbed modality frontend (hubert)
   patch_embeds  (B, P, d_model)      — stubbed vision frontend (paligemma)
+  loss_mask     (B, S) float optional — 1.0 where `lm_loss` counts a position
+  targets       (B, S) int optional   — explicit labels (encoder models)
 `chunk_prefill` and `decode_step` take token tensors, as the reference's
 do; a prefix-VLM model reaches them with its text tokens alone.
 """
@@ -204,6 +206,62 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if last_only:
         x = x[:, -1:]
     return unembed(params["embedding"], x, cfg), new_caches, aux
+
+
+def _chunked_ce(params: Params, x: torch.Tensor, targets: torch.Tensor,
+                loss_mask: torch.Tensor, cfg: ModelConfig, chunk: int = 512
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's `_chunked_ce`: mean cross-entropy over the counted
+    positions, the (B, S, vocab) logits made `chunk` positions at a time.
+    Each chunk's bf16 logits are cast to f32, the padded vocab masked to
+    -1e30, and the target's logit picked by a masked sum (the reference's
+    vocab-sharding-friendly pick).  x (B, S, d) bf16, targets (B, S) int,
+    loss_mask (B, S) f32 -> (mean CE, count of counted positions), f32."""
+    S = x.shape[1]
+    dev = x.device
+    vocab_iota = torch.arange(cfg.vocab_padded, device=dev)
+    vocab_ok = vocab_iota < cfg.vocab
+    tot = torch.zeros((), device=dev)
+    cnt = torch.zeros((), device=dev)
+    for s0 in range(0, S, chunk):
+        xb, tb = x[:, s0:s0 + chunk], targets[:, s0:s0 + chunk]
+        mb = loss_mask[:, s0:s0 + chunk]
+        logits = unembed(params["embedding"], xb, cfg).float()
+        logits = torch.where(vocab_ok, logits, torch.full_like(logits, -1e30))
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.sum(torch.where(vocab_iota == tb[..., None], logits,
+                                       torch.zeros_like(logits)), dim=-1)
+        tot = tot + torch.sum((lse - picked) * mb)
+        cnt = cnt + torch.sum(mb)
+    return tot / torch.clamp_min(cnt, 1.0), cnt
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's training loss: (loss, {"ce", "aux", "tokens"}), loss
+    = ce + router_aux_weight · aux.  Token models predict each next token
+    (a prefix VLM over its text positions only); an encoder predicts
+    `targets` where `loss_mask` counts.  Differentiable in `params`; with
+    `cfg.remat` every block is rematerialized in the backward pass."""
+    x, prefix_len = _inputs_to_x(params, batch, cfg)
+    x, _, aux = apply_stack(params["stack"], x, cfg, prefix_len=prefix_len)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps).to(torch.bfloat16)
+    if cfg.is_encoder:
+        targets = batch["targets"]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(targets.shape, device=x.device) if mask is None
+                else mask.float())
+    else:
+        tokens = batch["tokens"]
+        if cfg.input_mode == "prefix_vlm":
+            x = x[:, prefix_len:]         # loss over the text positions only
+        targets, x = tokens[:, 1:], x[:, :-1]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(targets.shape, device=x.device) if mask is None
+                else mask[:, 1:].float())
+    ce, cnt = _chunked_ce(params, x, targets, mask, cfg)
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -2,8 +2,14 @@
 Mamba's selective scan (hymba's SSM branch) and xLSTM's mLSTM and sLSTM.
 
 The reference scans in sequence chunks with the chunk interiors
-rematerialized for the backward pass; the port serves only, so it keeps
-no remat.  Its prefill pads the sequence to a multiple of the chunk:
+rematerialized for the backward pass (`chunked_scan`).  Under autograd
+(training) the port does the same: Mamba's scan and sLSTM's loop run each
+CHUNK of steps inside `torch.utils.checkpoint`, so only the boundary
+states are saved, and Mamba's step is out of place (autograd refuses the
+serving loop's in-place one) with the same operations in the same order,
+so both routes give the same values.  Serving keeps the in-place loop.
+The mLSTM's chunkwise form differentiates as it is.  The prefill pads the
+sequence to a multiple of the chunk:
 
   * a padded Mamba step is an exact identity (dt = 0 gives dA = 1 and
     dBx = 0), so the port runs only the real steps; a chunk continuation
@@ -29,6 +35,8 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import _silu, rmsnorm
@@ -61,6 +69,25 @@ def _bf16_const(value: float) -> float:
     """A python scalar as a bf16 operand sees it (jax's weak typing rounds
     it to the array's dtype first)."""
     return torch.tensor(value).to(torch.bfloat16).item()
+
+
+def _recording(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on these inputs (training)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def chunked_scan(run_chunk, carry, n_steps: int, chunk: int = CHUNK):
+    """The reference's `chunked_scan` for the port's loops: steps
+    [0, n_steps) in chunks of `chunk`, `run_chunk(carry, s0, s1) ->
+    (carry, ys)` for each, every chunk rematerialized in the backward
+    pass (only the boundary carries are saved).  Returns (carry, the
+    chunks' ys in order)."""
+    ys = []
+    for s0 in range(0, n_steps, chunk):
+        s1 = min(n_steps, s0 + chunk)
+        carry, y = checkpoint(run_chunk, carry, s0, s1, use_reentrant=False)
+        ys.append(y)
+    return carry, ys
 
 
 def _copy_into(cache: Params, new: Params) -> Params:
@@ -105,7 +132,10 @@ def _mamba_scan(h: torch.Tensor, x_c, dt, Bc, Cc, A, n_steps: int):
     steps hold h (the reference's frozen tail).  h (B, di, N); x_c, dt
     (B, S, di); Bc, Cc (B, S, N).  Each block of CHUNK steps precomputes
     its dA and dBx at once, so a step is two launches.  Returns
-    (y (B, S, di) f32, h after n_steps)."""
+    (y (B, S, di) f32, h after n_steps).  Under autograd the blocks run
+    out of place inside `chunked_scan` (`_mamba_scan_grad`)."""
+    if _recording(h, x_c, dt, Bc, Cc, A):
+        return _mamba_scan_grad(h, x_c, dt, Bc, Cc, A, n_steps)
     S = x_c.shape[1]
     ys = []
     for s0 in range(0, S, CHUNK):
@@ -124,6 +154,30 @@ def _mamba_scan(h: torch.Tensor, x_c, dt, Bc, Cc, A, n_steps: int):
             hs[n:] = h
         ys.append(torch.einsum("kben,kbn->kbe", hs,
                                Cc[:, s0:s1].transpose(0, 1)))
+    return torch.cat(ys).transpose(0, 1), h
+
+
+def _mamba_scan_grad(h, x_c, dt, Bc, Cc, A, n_steps: int):
+    """`_mamba_scan` for training: `h = dA[t]·h + dBx[t]` out of place, the
+    serving loop's operations in its order, each CHUNK-step block
+    rematerialized; steps from n_steps on hold h."""
+    S = x_c.shape[1]
+
+    def block(h, s0, s1):
+        dtb = dt[:, s0:s1].transpose(0, 1)[..., None]
+        dA = torch.exp(dtb * A)
+        dBx = (dtb * Bc[:, s0:s1].transpose(0, 1)[:, :, None, :]
+               * x_c[:, s0:s1].transpose(0, 1)[..., None])
+        hs = []
+        for t in range(max(0, min(n_steps, s1) - s0)):
+            h = dA[t] * h + dBx[t]
+            hs.append(h)
+        hs.extend([h] * (s1 - s0 - len(hs)))
+        y = torch.einsum("kben,kbn->kbe", torch.stack(hs),
+                         Cc[:, s0:s1].transpose(0, 1))
+        return h, y
+
+    h, ys = chunked_scan(block, h, S)
     return torch.cat(ys).transpose(0, 1), h
 
 
@@ -295,21 +349,34 @@ def slstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
         c = n = h = torch.zeros((B, H, D), dtype=torch.float32,
                                 device=x.device)
     n_valid = S if valid_len is None or S == 1 else int(valid_len)
-    ys = []
-    for t in range(n_valid):
-        rec = torch.einsum("bhd,hdg->bhg", h, r_g)
-        g = pre[:, t].reshape(B, H, 4 * D) + rec
-        i_, f_, z_, o_ = torch.split(g, D, dim=-1)
-        i_ = torch.exp(torch.clamp_max(i_, 10.0))
-        f_ = _sigmoid(f_)
-        z_ = torch.tanh(z_)
-        o_ = _sigmoid(o_)
-        c = f_ * c + i_ * z_
-        n = f_ * n + i_
-        h = o_ * c / torch.clamp_min(torch.abs(n), 1.0)
-        ys.append(h)
-    ys.extend([h] * (S - n_valid))
-    y = torch.stack(ys, dim=1).reshape(B, S, d).to(x.dtype)
+
+    def steps(state, t0, t1):
+        c, n, h = state
+        hs = []
+        for t in range(t0, t1):
+            rec = torch.einsum("bhd,hdg->bhg", h, r_g)
+            g = pre[:, t].reshape(B, H, 4 * D) + rec
+            i_, f_, z_, o_ = torch.split(g, D, dim=-1)
+            i_ = torch.exp(torch.clamp_max(i_, 10.0))
+            f_ = _sigmoid(f_)
+            z_ = torch.tanh(z_)
+            o_ = _sigmoid(o_)
+            c = f_ * c + i_ * z_
+            n = f_ * n + i_
+            h = o_ * c / torch.clamp_min(torch.abs(n), 1.0)
+            hs.append(h)
+        return (c, n, h), torch.stack(hs, dim=1)
+
+    if _recording(pre, r_g):
+        (c, n, h), ys = chunked_scan(steps, (c, n, h), n_valid)
+    elif n_valid:
+        (c, n, h), y = steps((c, n, h), 0, n_valid)
+        ys = [y]
+    else:
+        ys = []
+    # a position past the valid tokens outputs the state it holds
+    ys.append(h[:, None].expand(B, S - n_valid, H, D))
+    y = torch.cat(ys, dim=1).reshape(B, S, d).to(x.dtype)
     new_cache = None
     if cache is not None:
         new_cache = _copy_into(cache, {"c": c, "n": n, "h": h})

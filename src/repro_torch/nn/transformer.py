@@ -15,12 +15,18 @@ scanned segment's layers the carry is a bf16 array, so there the stream
 is rounded at every layer boundary.  Following the same rounding points
 keeps the port's bf16 activations bit-equal to the reference's on the
 CPU, which is what makes greedy tokens identical near ties.
+
+Training rematerializes every block, as the reference's `jax.checkpoint`
+does: with `cfg.remat`, no cache, no `make_cache` and autograd on, each
+block runs inside `torch.utils.checkpoint`, which saves only the block's
+input and runs the block again in the backward pass.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn.attention import attention
 from repro_torch.nn.config import ModelConfig
@@ -120,6 +126,18 @@ def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
     return out, new_cache, aux
 
 
+def _unstack(tree: Params) -> List[Params]:
+    """A stacked segment's params as one tree per layer, by one `unbind`
+    per (L, ...) leaf: under autograd its backward stacks the L layers'
+    gradients once, where indexing each layer would add L full-size
+    (L, ...) gradients into the leaf."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v) for k, v in tree.items()}
+        return [{k: per[k][li] for k in tree}
+                for li in range(len(next(iter(per.values()))))]
+    return list(tree.unbind(0))
+
+
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 prefix_len: int = 0, caches: Optional[List[Any]] = None,
                 cache_pos=None, make_cache: bool = False, cache_len: int = 0,
@@ -132,6 +150,15 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     segment), the caches and the blocks' summed aux loss."""
     new_caches: List[Any] = []
     aux_total = torch.zeros((), device=x.device)
+    remat = (cfg.remat and caches is None and not make_cache
+             and torch.is_grad_enabled())
+
+    def block(bp, x, i, cache, kw):
+        if remat:
+            return checkpoint(apply_block, bp, x, cfg, i, cache=None,
+                              use_reentrant=False, **kw)
+        return apply_block(bp, x, cfg, i, cache=cache, **kw)
+
     for seg_idx, (start, length, scanned) in enumerate(stack_plan(cfg)):
         seg_params = params["segments"][seg_idx]
         seg_cache = caches[seg_idx] if caches is not None else None
@@ -139,17 +166,17 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   make_cache=make_cache, cache_len=cache_len,
                   page_table=page_table, valid_len=valid_len)
         if not scanned:
-            x, nc, aux = apply_block(seg_params, x, cfg, start,
-                                     cache=seg_cache, **kw)
+            x, nc, aux = block(seg_params, x, start, seg_cache, kw)
             aux_total = aux_total + aux
             new_caches.append(nc)
             continue
         layer_caches = []
+        layers = _unstack(seg_params)
         for li in range(length):
-            bp = tree_map(lambda a, li=li: a[li], seg_params)
+            bp = layers[li]
             lc = (tree_map(lambda a, li=li: a[li], seg_cache)
                   if seg_cache is not None else None)
-            x, nc, aux = apply_block(bp, x, cfg, start, cache=lc, **kw)
+            x, nc, aux = block(bp, x, start, lc, kw)
             x = x.to(torch.bfloat16)        # the scan carry is bf16
             aux_total = aux_total + aux
             layer_caches.append(nc)

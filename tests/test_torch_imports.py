@@ -42,7 +42,7 @@ def test_sources_name_no_jax_or_reference_import():
                          r"import repro\.|from repro import|import repro\b)",
                          re.M)
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
-    assert len(examples) >= 3
+    assert len(examples) >= 4
     files = sorted(PORT.rglob("*.py")) + examples + [ROOT / "chip_smoke.py"]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in pattern.finditer(f.read_text())]
