@@ -102,7 +102,14 @@ Phases (any failure exits non-zero before the last line):
      LOGIT_TOL with the MoE routing pinned to the kernel run's experts
      (printed unpinned too: routing is discontinuous); a decode step
      profiled, with the weight reads as written and as the step's
-     routing hit them, and the MoE layers' share of its device time.
+     routing hit them, and the MoE layers' share of its device time; then
+     the longest prompt's prefill and a slot decode step under a 1 x 1
+     mesh on a one-rank NCCL group (`moe_mesh`: the MoE layers on the
+     reference's all-to-all and replicated bodies, 27 flash launches),
+     each MoE layer's mesh output against the no-mesh one on its captured
+     input, the dispatch against the CPU's, tokens dropped, expert rows,
+     the MoE layers' device time with and without the mesh, and
+     `compressed_psum_pod` against the CPU path, the group ended after.
      Then the default mode (phase 8's, every step against the plain
      versions, the routing pinned on the MoE model) on minicpm-2b at
      full depth and qwen3-32b, yi-34b and qwen3-moe-235b-a22b at full
@@ -2818,13 +2825,10 @@ def mla_decode_profile(torch, cfg, params, requests):
         for _ in range(5):
             step(params, tok, arena.caches, pos)
         torch.cuda.synchronize()
-    averages = prof.key_averages()
-    device_ms = sum(e.device_time_total for e in averages
+    device_ms = sum(e.device_time_total for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA
                     and e.key != MOE_SPAN) / 1e3 / 5
-    moe_ms = max((e.device_time_total for e in averages
-                  if e.key == MOE_SPAN and e.device_type == DeviceType.CPU),
-                 default=0) / 1e3 / 5
+    moe_ms = span_device_ms(prof, MOE_SPAN) / 5
     out = dict(wall_ms=wall_ms, device_ms=device_ms, moe_device_ms=moe_ms,
                read_all_gb=read_all / 1e9, read_hit_gb=read_hit / 1e9,
                bound_all_ms=read_all / HBM_BYTES_PER_S * 1e3,
@@ -2884,12 +2888,274 @@ def check_flash_mla(torch, S=512, seed=17):
     return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops)
 
 
-def families(torch):
+def span_device_ms(prof, span):
+    """Device time (ms) of the kernels launched inside every profiler
+    range named `span`, summed."""
+    from torch.autograd import DeviceType
+    return max((e.device_time_total for e in prof.key_averages()
+                if e.key == span and e.device_type == DeviceType.CPU),
+               default=0) / 1e3
+
+
+def top_kernels(prof, n=6):
+    """The `n` device kernels with the most device time in a profile
+    (MOE_SPAN's range on the device timeline left out): [(name, ms)]."""
+    from torch.autograd import DeviceType
+    ks = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.key != MOE_SPAN),
+                key=lambda e: -e.device_time_total)[:n]
+    return [(e.key[:70], round(e.device_time_total / 1e3, 3)) for e in ks]
+
+
+def moe_layer_params(cfg, params):
+    """Each MoE layer's params, in layer order (a stacked segment's
+    layers indexed out of its (L, ...) leaves)."""
+    from repro_torch.nn.transformer import stack_plan
+    from repro_torch.tree import tree_map
+    out = []
+    for seg, (_, length, scanned) in zip(params["stack"]["segments"],
+                                         stack_plan(cfg)):
+        if "moe" in seg:
+            out.extend(tree_map(lambda a, i=i: a[i], seg["moe"])
+                       if scanned else seg["moe"]
+                       for i in range(length if scanned else 1))
+    return out
+
+
+def capturing_moe(records, span=None):
+    """A stand-in for the blocks' `moe` that appends each call's (input,
+    output) to `records` (unless None), the call inside a profiler range
+    `span`."""
+    from torch.profiler import record_function
+    from repro_torch.nn import transformer as tf_mod
+    orig = tf_mod.moe
+
+    def call(p, x, cfg, decode=False):
+        with (record_function(span) if span else contextlib.nullcontext()):
+            y, aux = orig(p, x, cfg, decode=decode)
+        if records is not None:
+            records.append((x.clone(), y.clone()))
+        return y, aux
+    return mock.patch.object(tf_mod, "moe", call)
+
+
+def recording_dispatch(records):
+    """A stand-in for `nn.moe._pack_dispatch` that appends each call's
+    inputs and integer outputs to `records`."""
+    from repro_torch.nn import moe as moe_mod
+    orig = moe_mod._pack_dispatch
+
+    def call(xf, gate_vals, gate_idx, n_experts, capacity):
+        out = orig(xf, gate_vals, gate_idx, n_experts, capacity)
+        records.append({"xf": xf, "gate_vals": gate_vals,
+                        "gate_idx": gate_idx, "capacity": capacity,
+                        "flat_token": out[1], "slot": out[2]})
+        return out
+    return mock.patch.object(moe_mod, "_pack_dispatch", call)
+
+
+def moe_mesh(torch, cfg, params, requests, card):
+    """Phase 10's mesh readings on deepseek-v2-lite-16b's full-width
+    params: a 1 x 1 (data, model) mesh on a one-rank NCCL group
+    (`make_debug_mesh`), the longest prompt's prefill under it (the MoE
+    layers on the all-to-all body at the config's capacity factor, flash
+    launches counted) and one slot decode step (the replicated body).
+    Each MoE layer's mesh output is held against the no-mesh `moe` on
+    that layer's input captured in a no-mesh run (so that routing
+    near-ties between two routes cannot move the comparison): the
+    replicated body, and the all-to-all body at a capacity factor of E/k
+    (no token dropped), within KERNEL_TOL (rtol and atol, the bf16
+    tolerance); at the config's factor the dispatch's token ids, slots
+    (-1 dropped) and keep flags equal, bit for bit, the CPU's
+    `_pack_dispatch` on the same routing.  Prints the tokens dropped per
+    layer, expert rows (E·cap against T·E), the MoE layers' device time
+    in the mesh prefill against the no-mesh prefill, peak memory; then
+    `compressed_psum_pod` over the one-rank group on layer 0's
+    gradient-shaped tensors, its result and error equal to the CPU path's
+    (over a one-rank gloo group).  The group is ended before the return.
+    Returns a dict of the readings."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import prefill_step
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.nn.model import decode_step
+    from repro_torch.parallel.compression import compressed_psum_pod
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.tree import tree_flatten, tree_map
+    t_start = time.perf_counter()
+    log(f"{cfg.name} under a 1 x 1 mesh, one NCCL rank ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    prompt = max((p for p, _, _ in requests), key=len)
+    T, E, k = len(prompt), cfg.n_experts, cfg.moe_topk
+    batch = {"tokens": torch.tensor([prompt], device="cuda")}
+    layers = moe_layer_params(cfg, params)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def prefill():
+        logits, caches = prefill_step(params, batch, cfg, T + 1)
+        torch.cuda.synchronize()
+        return logits, caches
+
+    # the no-mesh prefill: each MoE layer's input and output captured, the
+    # layers' device time in profiler ranges
+    plain = []
+    with capturing_moe(plain, MOE_SPAN), profile(activities=acts) as prof:
+        logits0, caches = prefill()
+    moe_ms0 = span_device_ms(prof, MOE_SPAN)
+    top0 = top_kernels(prof)
+    tok = logits0[:, :cfg.vocab].argmax(-1)
+    saved = [t.clone() for t in tree_flatten(caches)]
+    dec_plain = []
+    with capturing_moe(dec_plain):
+        decode_step(params, tok, caches, T, cfg)
+    for t, s_ in zip(tree_flatten(caches), saved):
+        t.copy_(s_)
+    del saved
+    mesh = make_debug_mesh(1, 1)
+    try:
+        with use_mesh(mesh):
+            # the slice's main path: the prefill and a decode step on the
+            # mesh, launch counts set to 0 just before
+            dispatch, bodies = [], []
+            rep = moe_mod._moe_body_replicated
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            with recording_dispatch(dispatch), mock.patch.object(
+                    moe_mod, "_moe_body_replicated",
+                    lambda *a: bodies.append(1) or rep(*a)):
+                logits1, _ = prefill()
+                logits_d, _ = decode_step(params, tok, caches, T, cfg)
+                torch.cuda.synchronize()
+            launches = launch_counts()
+            flash_layers, _ = kernel_layers(cfg)
+            want = dict({n: 0 for n in launches},
+                        flash_attention=flash_layers)
+            if launches != want:
+                raise AssertionError(f"mesh prefill + decode: launches "
+                                     f"{launches}, want {want}")
+            if len(dispatch) != len(layers) or len(bodies) != len(layers):
+                raise AssertionError(
+                    f"mesh run: {len(dispatch)} all-to-all dispatches and "
+                    f"{len(bodies)} replicated bodies for {len(layers)} MoE "
+                    f"layers")
+            for name, x in (("prefill", logits1), ("decode", logits_d)):
+                if not (torch.isfinite(x.float()).all()
+                        and tuple(x.shape) == (1, cfg.vocab_padded)):
+                    raise AssertionError(f"mesh {name} logits not finite / "
+                                         f"wrong shape")
+            # the dispatch at the config's factor against the CPU's
+            cap = dispatch[0]["capacity"]
+            drops = []
+            for rec in dispatch:
+                want_d = moe_mod._pack_dispatch(
+                    rec["xf"].cpu(), rec["gate_vals"].cpu(),
+                    rec["gate_idx"].cpu(), E, rec["capacity"])
+                slot, tok_ids = rec["slot"].cpu(), rec["flat_token"].cpu()
+                if not (rec["capacity"] == cap
+                        and torch.equal(tok_ids, want_d[1])
+                        and torch.equal(slot, want_d[2])
+                        and torch.equal(slot >= 0, want_d[2] >= 0)):
+                    raise AssertionError("mesh dispatch differs from the "
+                                         "CPU's _pack_dispatch")
+                drops.append(int((slot < 0).sum()))
+            del dispatch
+            # the MoE layers' device time in the mesh prefill (warm)
+            with capturing_moe(None, MOE_SPAN), \
+                    profile(activities=acts) as prof:
+                prefill()
+            moe_ms1 = span_device_ms(prof, MOE_SPAN)
+            top1 = top_kernels(prof)
+            # prefill walls, unprofiled, in turns: dense, mesh, mesh, dense
+            walls = {"dense": [], "mesh": []}
+            for arm in ("dense", "mesh", "mesh", "dense"):
+                with (use_mesh(None) if arm == "dense"
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    prefill()
+                    walls[arm].append((time.perf_counter() - t0) * 1e3)
+            # each layer's mesh output against the no-mesh one on its input
+            nodrop = dataclasses.replace(cfg, capacity_factor=E / k)
+            err = {"a2a": 0.0, "replicated": 0.0}
+            for p, (x, y), (xd, yd) in zip(layers, plain, dec_plain):
+                seen = []
+                with recording_dispatch(seen):
+                    got, _ = moe_mod.moe(p, x, nodrop)
+                if int((seen[0]["slot"] < 0).sum()):
+                    raise AssertionError("a token dropped at E/k")
+                got_d, _ = moe_mod.moe(p, xd, cfg, decode=True)
+                for path, a, b in (("a2a", got, y), ("replicated", got_d,
+                                                     yd)):
+                    if not torch.allclose(a.float(), b.float(),
+                                          rtol=KERNEL_TOL, atol=KERNEL_TOL):
+                        raise AssertionError(
+                            f"mesh {path} MoE output off the no-mesh one "
+                            f"by {(a.float() - b.float()).abs().max()}")
+                    err[path] = max(err[path], (a.float() - b.float())
+                                    .abs().max().item())
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # int8 compression over the one-rank group, on the card and on
+            # the CPU (gloo)
+            g = torch.Generator(device="cuda").manual_seed(30)
+            grads = tree_map(lambda a: torch.randn(
+                a.shape, generator=g, device="cuda"),
+                params["stack"]["segments"][0])
+            t0 = time.perf_counter()
+            red, e1 = compressed_psum_pod(grads, None)
+            torch.cuda.synchronize()
+            comp_ms = (time.perf_counter() - t0) * 1e3
+            gloo = dist.new_group(backend="gloo")
+            red_c, e1_c = compressed_psum_pod(
+                tree_map(lambda a: a.cpu(), grads), None, group=gloo)
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(
+                tree_flatten(red) + tree_flatten(e1),
+                tree_flatten(red_c) + tree_flatten(e1_c)))
+            n_comp = sum(t.numel() for t in tree_flatten(grads))
+            del grads, red, e1, red_c, e1_c
+            if not same:
+                raise AssertionError("compressed_psum_pod on the card "
+                                     "differs from the CPU path")
+    finally:
+        dist.destroy_process_group()
+    out = dict(
+        tokens=T, capacity=cap, drops_per_layer=drops,
+        expert_rows_mesh=E * cap, expert_rows_dense=T * E,
+        flash_launches=launches["flash_attention"],
+        moe_device_ms_mesh=moe_ms1, moe_device_ms_dense=moe_ms0,
+        prefill_wall_ms_mesh=walls["mesh"],
+        prefill_wall_ms_dense=walls["dense"],
+        top_kernels_mesh=top1, top_kernels_dense=top0,
+        max_err_a2a_no_drop=err["a2a"], max_err_replicated=err["replicated"],
+        peak_gib=peak, compressed_elements=n_comp,
+        compressed_psum_ms=comp_ms,
+        seconds=time.perf_counter() - t_start)
+    log(f"{cfg.name} mesh prefill of {T} tokens ({card}): capacity {cap} "
+        f"(factor {cfg.capacity_factor}), tokens dropped per MoE layer "
+        f"{drops} (of {T * k} assignments each), expert rows E·cap "
+        f"{E * cap} against T·E {T * E} ({T / cap:.2f}x fewer); MoE layers "
+        f"{moe_ms1:.2f} ms device time under the mesh against {moe_ms0:.2f} "
+        f"ms without (prefill walls in turns, ms: dense, mesh, mesh, dense "
+        f"{walls['dense'][0]:.1f}, {walls['mesh'][0]:.1f}, "
+        f"{walls['mesh'][1]:.1f}, {walls['dense'][1]:.1f}); "
+        f"{launches['flash_attention']} flash "
+        f"launches; each layer's mesh output within KERNEL_TOL of the "
+        f"no-mesh one (max abs err: all-to-all at E/k {err['a2a']:.4g}, "
+        f"replicated {err['replicated']:.4g}), the dispatch equal to the "
+        f"CPU's; compressed_psum_pod on {n_comp:,} elements equal to the "
+        f"CPU path; peak {peak:.2f} GiB; {out['seconds']:.1f} s")
+    return out
+
+
+def families(torch, card):
     """Phase 10: deepseek-v2-lite-16b at full width and all 27 layers
     (MLA + MoE) through the engine in the slot, paged and chunked runs,
-    its prefill against the plain versions and its decode step profiled;
+    its prefill against the plain versions and its decode step profiled,
+    then its prefill and a decode step under a 1 x 1 mesh (`moe_mesh`);
     then the GQA families through the default mode, each freed before the
-    next.  Returns ({config: launches}, deepseek's decode numbers)."""
+    next.  Returns ({config: launches}, deepseek's decode numbers, the
+    mesh readings)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.nn.model import init_params
@@ -2959,6 +3225,7 @@ def families(torch):
     decode = mla_decode_profile(torch, cfg, params, requests)
     decode["serve_tok_s"] = {k: v[2] for k, v in runs.items()}
     decode["slot_vs_paged"] = parting
+    mesh = moe_mesh(torch, cfg, params, requests, card)
     launches = {MLA_ARCH: {k: v[1] for k, v in runs.items()}}
     del params
     gc.collect()
@@ -2979,7 +3246,7 @@ def families(torch):
         torch.cuda.empty_cache()
         log(f"{name}: {time.perf_counter() - t0:.1f} s")
     log(f"phase 10 (families): {time.perf_counter() - t_phase:.1f} s")
-    return launches, decode
+    return launches, decode, mesh
 
 
 # ------------------------------------------------------------ phase 11
@@ -4401,8 +4668,9 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    fam_launches, fam_decode = families(torch)
+    fam_launches, fam_decode, fam_mesh = families(torch, card)
     log(f"phase 10 {MLA_ARCH} decode: {json.dumps(fam_decode)}")
+    log(f"phase 10 {MLA_ARCH} mesh ({card}): {json.dumps(fam_mesh)}")
 
     # phase 11: hymba's attention beside Mamba, and xLSTM, at full width
     rec_launches, rec_profile = recurrent(torch)
@@ -4502,6 +4770,7 @@ def main() -> int:
          "mla_max_abs_err": mla[0], "mla_ms": mla[1], "mla_plain_ms": mla[2],
          "mla_library_ms": mla[3], "mla_bound_ms": mla[4][0],
          "mla_bound_by": mla[4][1], **family_fields("flash_attention"),
+         "mesh_launches": fam_mesh["flash_launches"],
          "hymba_max_abs_err": hymba[0], "hymba_ms": hymba[1],
          "hymba_plain_ms": hymba[2], "hymba_library_ms": hymba[3],
          "hymba_bound_ms": hymba[4][0], "hymba_bound_by": hymba[4][1],

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.nn.config import ModelConfig
 
@@ -51,3 +52,22 @@ def make_batch(cfg: ModelConfig, data: DataConfig,
                 (B, cfg.prefix_len, cfg.d_model), dtype=np.float32),
         }
     return {"tokens": _tokens(rng, (B, S), cfg.vocab)}
+
+
+def make_batch_specs(cfg: ModelConfig, data: DataConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """`make_batch`'s leaves as `meta` tensors: shapes and dtypes, no
+    allocation (the reference's ShapeDtypeStructs for the dry run)."""
+    B, S = data.global_batch, data.seq_len
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    f32, i32 = torch.float32, torch.int32
+    if cfg.input_mode == "embeddings":
+        return {"embeds": spec((B, S, cfg.d_model), f32),
+                "targets": spec((B, S), i32),
+                "loss_mask": spec((B, S), f32)}
+    if cfg.input_mode == "prefix_vlm":
+        return {"tokens": spec((B, S), i32),
+                "patch_embeds": spec((B, cfg.prefix_len, cfg.d_model), f32)}
+    return {"tokens": spec((B, S), i32)}

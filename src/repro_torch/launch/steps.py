@@ -1,5 +1,8 @@
-"""Step functions — PyTorch port of `repro.launch.steps`: the training
-step and the serving steps.
+"""Step functions and their sharding trees — PyTorch port of
+`repro.launch.steps`: the training step, the serving steps, the sharding
+trees of params, optimizer state, batches and caches over a device mesh,
+and the abstract inputs of every cell as `meta` tensors (shapes and
+dtypes, nothing allocated).
 
 The reference wraps each step in a cached `jax.jit`.  PyTorch runs
 eagerly, so the steps are plain functions; the prefill steps keep the
@@ -10,18 +13,22 @@ an engine ran exactly as the reference counts its jit traces.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence
 
 import torch
 
+from repro_torch.data.pipeline import DataConfig, make_batch_specs
 from repro_torch.nn.attention import _kv_quant
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.model import chunk_prefill, decode_step, lm_loss, prefill
-from repro_torch.nn.transformer import stack_plan
-from repro_torch.optim.adamw import AdamWState, adamw_update
+from repro_torch.nn.model import (chunk_prefill, decode_step, init_cache,
+                                  init_params, lm_loss, param_specs, prefill)
+from repro_torch.nn.transformer import layer_kind, stack_plan
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedules import cosine, wsd
+from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
+                                           axis_size, make_spec)
 from repro_torch.serving.sampling import sample_tokens
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 # ----------------------------------------------------------------- train
@@ -233,3 +240,138 @@ def sample_step(logits, vocab: int, temps: Sequence[float],
     call per decode batch, never one host sync per row."""
     return sample_tokens(logits, vocab, temperatures=temps, top_ks=top_ks,
                          keys=keys, steps=steps)
+
+
+# ------------------------------------------------------------- shardings
+def _is_spec_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def param_shardings(cfg: ModelConfig, mesh):
+    return tree_map(lambda s: NamedSharding(mesh, make_spec(*s)),
+                    param_specs(cfg), is_leaf=_is_spec_leaf)
+
+
+def opt_shardings(param_sh, mesh):
+    return AdamWState(step=NamedSharding(mesh, P()), mu=param_sh,
+                      nu=param_sh)
+
+
+def batch_shardings(cfg: ModelConfig, mesh):
+    ba = make_spec("batch")[0]
+    out: Dict[str, NamedSharding] = {}
+    d = DataConfig(seq_len=8, global_batch=8)  # structure only
+    for k in make_batch_specs(cfg, d):
+        if k in ("tokens", "targets", "loss_mask"):
+            out[k] = NamedSharding(mesh, P(ba, None))
+        else:  # embeds / patch_embeds: shard seq over model too
+            out[k] = NamedSharding(mesh, P(ba, "model", None))
+    return out
+
+
+def batch_axis_for(mesh, global_batch: int):
+    """The batch mesh axes, or None (replicate) when the batch is too small
+    to shard (e.g. long_500k's single sequence)."""
+    ba = make_spec("batch")[0]
+    if ba is None:
+        return None
+    axes = (ba,) if isinstance(ba, str) else tuple(ba)
+    n = 1
+    for a in axes:
+        n *= axis_size(mesh, a)
+    return ba if global_batch % n == 0 else None
+
+
+def cache_shardings(cfg: ModelConfig, mesh, global_batch: int = 0):
+    """Mirrors nn.model.init_cache structure (segment plan)."""
+    ba = make_spec("batch")[0]
+    if global_batch:
+        ba = batch_axis_for(mesh, global_batch)
+
+    def rep(*s):
+        return NamedSharding(mesh, P(*s))
+
+    def entry(window):
+        if cfg.attn_type == "mla":
+            return {"c_kv": rep(ba, "model", None),
+                    "k_rope": rep(ba, "model", None)}
+        out = {"k": rep(ba, "model", None, None),
+               "v": rep(ba, "model", None, None)}
+        if cfg.kv_cache_dtype == "int8":
+            out["k_scale"] = rep(ba, "model", None)
+            out["v_scale"] = rep(ba, "model", None)
+        return out
+
+    def layer_spec(i: int):
+        kind = layer_kind(cfg, i)
+        if kind == "mlstm":
+            return {"S": rep(ba, None, None, None), "n": rep(ba, None, None)}
+        if kind == "slstm":
+            return {"c": rep(ba, None, None), "n": rep(ba, None, None),
+                    "h": rep(ba, None, None)}
+        if kind == "hybrid":
+            return {
+                "attn": entry(cfg.window_for_layer(i)),
+                "mamba": {"conv": rep(ba, None, "model"),
+                          "h": rep(ba, "model", None)},
+            }
+        return {"attn": entry(cfg.window_for_layer(i))}
+
+    out = []
+    for start, length, scanned in stack_plan(cfg):
+        one = layer_spec(start)
+        if scanned:
+            one = tree_map(lambda sh: NamedSharding(mesh, P(None, *sh.spec)),
+                           one)
+        out.append(one)
+    return out
+
+
+# ------------------------------------------------------- abstract inputs
+META = torch.device("meta")
+
+
+def _bf16_floats(tree):
+    return tree_map(lambda t: t.to(torch.bfloat16)
+                    if t.is_floating_point() else t, tree)
+
+
+def abstract_params(cfg: ModelConfig):
+    """`init_params`' tree on the `meta` device with every float leaf in
+    bf16, as the reference's `eval_shape` stand-ins are."""
+    return _bf16_floats(init_params(cfg, device=META))
+
+
+def abstract_opt_state(aparams):
+    return adamw_init(aparams)
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, cache_len: int):
+    return init_cache(cfg, batch, cache_len, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape_kind: str, seq_len: int,
+                global_batch: int) -> Dict[str, Any]:
+    """`meta` tensor stand-ins for every model input of a cell."""
+    data = DataConfig(seq_len=seq_len, global_batch=global_batch)
+    if shape_kind == "train":
+        return {
+            "params": abstract_params(cfg),
+            "opt_state": None,  # filled by caller
+            "batch": make_batch_specs(cfg, data),
+            "step": torch.empty((), dtype=torch.int32, device=META),
+        }
+    if shape_kind == "prefill":
+        return {
+            "params": abstract_params(cfg),
+            "batch": make_batch_specs(cfg, data),
+        }
+    # decode: one token, cache of seq_len
+    return {
+        "params": abstract_params(cfg),
+        "token": torch.empty((global_batch,), dtype=torch.int32,
+                             device=META),
+        "caches": abstract_caches(cfg, global_batch, seq_len),
+        "pos": torch.empty((), dtype=torch.int32, device=META),
+    }

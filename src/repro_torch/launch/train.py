@@ -4,6 +4,8 @@
         --smoke --device cpu --steps 50 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
         --steps 3 --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --smoke --mesh debug --steps 2
 
 Deterministic step-indexed data (resume = set step), periodic async
 checkpoints with atomic rename in the reference's format (the port
@@ -12,14 +14,19 @@ port's), an emergency checkpoint on a watchdog timeout, and straggler
 statistics.  The step is `launch.steps.make_train_step`: autograd through
 `lm_loss` with every block rematerialized, the flash kernel's
 forward and the reference's flash backward on causal attention layers,
-then AdamW in place.  Runs on the card unless `--device cpu`.  One
-device, so `--mesh` takes `none` alone.
+then AdamW in place.  Runs on the card unless `--device cpu`.  The step
+runs under `--mesh`'s mesh (`parallel.sharding.use_mesh`): `none`, or
+`debug`, a 1 x 1 (data, model) mesh on one rank (a one-rank NCCL group
+on the card, gloo with `--device cpu`), whose MoE layers take the
+reference's expert-parallel bodies (capacity dispatch and all-to-all);
+`pod` and `multipod` need 256 and 512 ranks and raise on fewer.
 """
 from __future__ import annotations
 
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint, wait_for_saves)
@@ -30,9 +37,11 @@ from repro_torch.ft import StepTimer, Watchdog
 # serving before launch.steps: the steps module imports serving.sampling,
 # whose package imports the engine, which imports the steps
 import repro_torch.serving  # noqa: F401
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.nn.model import init_params
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.parallel.sharding import use_mesh
 from repro_torch.tree import tree_map
 
 
@@ -58,17 +67,36 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=100)
-    p.add_argument("--mesh", choices=("none",), default="none",
-                   help="one device: no mesh")
+    p.add_argument("--mesh", choices=("none", "debug", "pod", "multipod"),
+                   default="none")
     p.add_argument("--watchdog-s", type=float, default=600.0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain kernel versions)")
     return p
 
 
+def _mesh(kind: str, dev):
+    if kind == "debug":
+        return make_debug_mesh(1, 1, device=dev)
+    if kind in ("pod", "multipod"):
+        return make_production_mesh(multi_pod=kind == "multipod", device=dev)
+    return None
+
+
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
+    started = not dist.is_initialized()
+    try:
+        with use_mesh(_mesh(args.mesh, dev)):
+            _train(args, dev)
+    finally:
+        # a process group the mesh started ends with the run
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, dev) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     data = DataConfig(seq_len=args.seq, global_batch=args.batch)
 

@@ -208,6 +208,23 @@ def _kv_dequant(codes: torch.Tensor, scale: torch.Tensor,
 
 
 # ================================================================== module
+def attention_specs(cfg: ModelConfig) -> Params:
+    if cfg.attn_type == "mla":
+        s = {
+            "w_q": ("fsdp", "tp"), "w_dkv": ("fsdp", None),
+            "w_kr": ("fsdp", None), "w_uk": ("fsdp", "tp"),
+            "w_uv": ("fsdp", "tp"), "w_o": ("tp", "fsdp"),
+            "kv_norm": {"scale": (None,)},
+        }
+    else:
+        s = {"w_q": ("fsdp", "tp"), "w_k": ("fsdp", "tp"),
+             "w_v": ("fsdp", "tp"), "w_o": ("tp", "fsdp")}
+        if cfg.qk_norm:
+            s["q_norm"] = {"scale": (None,)}
+            s["k_norm"] = {"scale": (None,)}
+    return s
+
+
 def _gqa_qkv(params, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

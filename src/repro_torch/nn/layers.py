@@ -16,6 +16,9 @@ import torch
 from repro_torch.nn.config import ModelConfig
 
 Params = Dict[str, Any]
+# a spec tree: the param tree with, in place of each leaf, a tuple of
+# logical axes per dim (see `repro_torch.parallel.sharding`)
+Specs = Dict[str, Any]
 
 
 # ---------------------------------------------------------------- RMSNorm
@@ -27,6 +30,24 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- Embedding
+def rmsnorm_specs() -> Specs:
+    return {"scale": (None,)}
+
+
+def embedding_specs(cfg: ModelConfig) -> Specs:
+    s = {"table": ("tp", "fsdp")}
+    if not cfg.tie_embeddings:
+        s["head"] = ("fsdp", "tp")
+    return s
+
+
+def mlp_specs(gated: bool) -> Specs:
+    s = {"w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp")}
+    if gated:
+        s["w_gate"] = ("fsdp", "tp")
+    return s
+
+
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return params["table"].to(torch.bfloat16)[tokens]
 

@@ -23,11 +23,13 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.layers import embed, rmsnorm, unembed
+from repro_torch.nn.layers import (embed, embedding_specs, rmsnorm,
+                                   rmsnorm_specs, unembed)
 from repro_torch.nn.moe import init_moe
 from repro_torch.nn.ssm import (init_mamba_cache, init_mlstm_cache,
                                 init_slstm_cache)
-from repro_torch.nn.transformer import apply_stack, layer_kind, stack_plan
+from repro_torch.nn.transformer import (apply_stack, layer_kind, stack_plan,
+                                        stack_specs)
 
 Params = Dict[str, Any]
 
@@ -63,13 +65,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     `device` (the draws differ from jax's); matrices are stored in bf16,
     norm scales and the `F32_LEAVES` in f32 (see `repro_torch.weights`).
     Dense GQA (qk_norm too), MLA, MoE, hybrid (attention ∥ Mamba) and
-    xLSTM stacks; an untied `head` where the config unties it."""
+    xLSTM stacks; an untied `head` where the config unties it.  On the
+    `meta` device nothing is drawn: the tree holds shapes and dtypes only
+    (`launch.steps.abstract_params`)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev)
+    if gen is not None:
+        gen.manual_seed(seed)
 
     def draw(shape, scale, dtype):
         out = torch.empty(shape, dtype=dtype, device=dev)
+        if gen is None:
+            return out
         # one f32 draw per leading slice keeps the f32 scratch small
         for row in out.view(-1, *shape[-2:]) if len(shape) > 2 else [out]:
             row.copy_(torch.randn(row.shape, generator=gen, device=dev)
@@ -123,6 +130,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         segments.append(block)
     return {"embedding": emb, "stack": {"segments": segments},
             "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)}}
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """`init_params`' tree with each leaf's logical axes in its place."""
+    return {
+        "embedding": embedding_specs(cfg),
+        "stack": stack_specs(cfg),
+        "final_norm": rmsnorm_specs(),
+    }
 
 
 def _init_mamba(cfg: ModelConfig, normal, const) -> Params:

@@ -1,15 +1,12 @@
-"""Mixture-of-Experts — PyTorch port of `repro.nn.moe` without a mesh.
+"""Mixture-of-Experts with expert parallelism — PyTorch port of
+`repro.nn.moe`.
 
-The reference runs, without an installed mesh, its dense single-device
+Without an installed mesh the reference runs its dense single-device
 oracle `moe_reference`: route every token in f32 (softmax, top-k, the k
 gates normalized by their sum), evaluate every expert on every token in
 bf16, accumulate the gated expert outputs (kept in f32, see `_down_f32`)
 in f32 in expert order, cast the sum once to bf16 and add the shared
-experts' gated MLP.  It is exact: no
-capacity, no dropped token.  That is the function ported here; the mesh
-bodies (capacity dispatch, all-to-all, replicated-token decode) wait for
-the port's `parallel/`.
-
+experts' gated MLP.  It is exact: no capacity, no dropped token.
 `moe_reference` keeps the reference's loop over the experts.  `moe`, what
 the blocks call, computes the same function with the experts stacked: one
 batched product per weight over every expert, in token chunks that bound
@@ -18,6 +15,37 @@ the (E, tokens, d) activations, and the expert-order f32 sum as a
 sum associates as the reference's loop does).  No host sync and no shape
 that depends on the routing, so a decode step stays one fixed sequence of
 launches.
+
+Under an installed mesh (`parallel.sharding.use_mesh`) `moe` runs the
+reference's `shard_map` bodies on every rank of a `torch.distributed`
+device mesh.  Experts are split over the `model` axis; within each expert
+the weights are FSDP-split over `data` and all-gathered per layer.  Each
+rank takes its block of `x` and of the expert stacks by its mesh
+coordinates out of the whole tensors it holds, and the collectives run
+over the mesh's axis groups (autograd Functions over `torch.distributed`
+calls, so a training step differentiates through them):
+  * all-to-all (train / prefill, `_moe_body_a2a`): tokens split over the
+    batch axes and, by sequence, over `model`; each rank routes its tokens
+    and packs per-expert capacity buffers (`_pack_dispatch`, a capacity
+    factor with drops), exchanges them with one `all_to_all_single`, runs
+    its local experts on E_loc·M·cap rows and sends the results back;
+  * replicated tokens (decode, `_moe_body_replicated`): tokens replicated
+    over `model`; each rank evaluates only its local experts, masked by
+    the routing, and the partial outputs are summed by `all_reduce`.
+The shared experts' MLP runs on the rank's own token block (on the
+replicated path, model rank 0's output is the one autograd follows), and
+the output is gathered back to the global (B, S, D) on every rank.  The
+aux loss is what the reference's `out_specs P()` hands back: the value of
+the rank at mesh coordinate 0 (on the replicated path after its mean over
+`model`), which every rank receives.
+
+Gradients: the port's dense layers hold whole tensors and compute the same
+loss on every rank, so every rank's gradient of a dense leaf is already
+the one-process gradient.  `moe` keeps that: its input and its parameters
+enter through `_Replicated`, whose backward sums the rank's share over
+the whole mesh, so every rank ends with the one-process gradient of `x`
+and of every MoE leaf, and a training step applies each rank's gradients
+as they are, with no reduction of its own.
 """
 from __future__ import annotations
 
@@ -25,9 +53,11 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.layers import _act, mlp
+from repro_torch.nn.layers import _act, mlp, mlp_specs
+from repro_torch.parallel.sharding import MeshCtx, batch_axes, current_mesh
 
 Params = Dict[str, Any]
 
@@ -51,6 +81,18 @@ def init_moe(cfg: ModelConfig, normal) -> Params:
                        "w_down": normal((fs, d), 1.0 / math.sqrt(fs)),
                        "w_gate": normal((d, fs), 1.0 / math.sqrt(d))}
     return p
+
+
+def moe_specs(cfg: ModelConfig) -> Params:
+    s = {
+        "router": (None, None),
+        "w_gate": ("tp", "fsdp", None),
+        "w_up": ("tp", "fsdp", None),
+        "w_down": ("tp", None, "fsdp"),
+    }
+    if cfg.n_shared_experts:
+        s["shared"] = mlp_specs(gated=True)
+    return s
 
 
 def _route(x_f32: torch.Tensor, router: torch.Tensor, topk: int):
@@ -128,8 +170,270 @@ def moe_reference(params: Params, x: torch.Tensor, cfg: ModelConfig
     return _finish(params, out, x, cfg), aux
 
 
-def moe(params: Params, x: torch.Tensor, cfg: ModelConfig
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+# ----------------------------------------------------------- sharded paths
+def _pack_dispatch(xf, gate_vals, gate_idx, n_experts: int, capacity: int):
+    """The reference's sort-free capacity dispatch.  Each (token, pick)
+    assignment is ranked within its expert by arrival (a cumulative sum
+    over the one-hot picks) and kept while its rank is below `capacity`.
+    Returns (buffer (E, C, D) with each kept token's row at slot e·C + rank,
+    the assignments' token ids (T·k,), their slots (-1 where dropped) and
+    their gates (0 where dropped))."""
+    T, D = xf.shape
+    k = gate_idx.shape[-1]
+    flat_expert = gate_idx.reshape(-1)
+    flat_token = torch.arange(T, device=xf.device).repeat_interleave(k)
+    flat_gate = gate_vals.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat_expert.long(), n_experts)
+    pos = (torch.cumsum(onehot, dim=0) - 1) * onehot
+    pos_in_expert = pos.sum(-1)
+    keep = pos_in_expert < capacity
+    slot = torch.where(keep, flat_expert * capacity + pos_in_expert,
+                       torch.full_like(pos_in_expert, -1))
+    # a dropped assignment writes the spare row past the buffer, which is
+    # cut off (the reference's out-of-range rows with mode="drop")
+    rows = torch.where(keep, slot, n_experts * capacity)
+    buf = xf.new_zeros((n_experts * capacity + 1, D))
+    buf = buf.index_put((rows,), xf[flat_token])[:-1]
+    return (buf.reshape(n_experts, capacity, D), flat_token, slot,
+            torch.where(keep, flat_gate, torch.zeros_like(flat_gate)))
+
+
+# The collectives as autograd Functions over `torch.distributed` calls that
+# gloo and NCCL both run, so a training step differentiates through them.
+# Every rank computes the same loss from the global output, and each
+# rank's backward through the body gives its own share of the gradient:
+# an output gathered for every rank hands back the rank's own slice, a sum
+# for every rank passes its gradient through, an all-to-all runs in
+# reverse, and weights gathered over 'data' (used by each rank's own
+# tokens) reduce-scatter their gradients.  Every part of the output is
+# computed on one rank only (the shared experts too), so the shares of
+# all ranks add up to the one-process gradient, and `_Replicated` adds
+# them at the layer's inputs.
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """Slice i of `t`'s leading axis goes to rank i of the group; slice i
+    of the result came from rank i."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def _gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
+
+
+class _Replicated(torch.autograd.Function):
+    """A tensor every rank of the mesh holds whole: the identity forward;
+    backward, the ranks' gradient shares summed over every mesh axis, so
+    each rank receives the one-process gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone(memory_format=torch.contiguous_format)
+        for name in ctx.mesh.axis_names:
+            dist.all_reduce(out, group=ctx.mesh.group(name))
+        return out, None
+
+
+class _Owned(torch.autograd.Function):
+    """The identity; backward, the gradient on the rank that owns the
+    value and zeros on the others (the graph stays the same on every
+    rank, so every rank runs the same collectives in the same order)."""
+
+    @staticmethod
+    def forward(ctx, t, owner):
+        ctx.owner = owner
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.owner else torch.zeros_like(grad)), None
+
+
+class _GatherShards(torch.autograd.Function):
+    """`lax.all_gather(..., tiled=True)` of FSDP weight shards: the group's
+    shards concatenated along `axis` in rank order; gradients
+    reduce-scattered."""
+
+    @staticmethod
+    def forward(ctx, t, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return _gather(t, group, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        shards = torch.stack(grad.chunk(n, dim=ctx.axis))
+        return _exchange(shards, ctx.group).sum(0), None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Output blocks gathered along `axis` for every rank."""
+
+    @staticmethod
+    def forward(ctx, t, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return _gather(t, group, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        own = grad.chunk(n, dim=ctx.axis)[dist.get_rank(ctx.group)]
+        return own.contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """`lax.all_to_all(split_axis=0, concat_axis=0)` over the group."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+class _Psum(torch.autograd.Function):
+    """`lax.psum` over the group, its result used on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _gathered_weights(w_gate, w_up, w_down, ctx: MeshCtx):
+    """FSDP: the weights arrive split over `data` on D (or F); gather."""
+    data = ctx.group("data")
+    return (_GatherShards.apply(w_gate, data, 1),
+            _GatherShards.apply(w_up, data, 1),
+            _GatherShards.apply(w_down, data, 2))
+
+
+def _moe_body_a2a(xb, router, w_gate, w_up, w_down, cfg: ModelConfig,
+                  model_size: int, ctx: MeshCtx):
+    """Per-rank body (tokens sequence-split over 'model')."""
+    Bl, Sl, D = xb.shape
+    xf = xb.reshape(-1, D)
+    T = xf.shape[0]
+    k = cfg.moe_topk
+    probs, gate_vals, gate_idx = _route(xf.float(), router.float(), k)
+    aux = _aux_loss(probs, gate_idx, cfg.n_experts)
+    cap = max(int(T * k * cfg.capacity_factor / cfg.n_experts), 4)
+    buf, tok_idx, slot, gate = _pack_dispatch(xf, gate_vals, gate_idx,
+                                              cfg.n_experts, cap)
+    e_loc = cfg.n_experts // model_size
+    model = ctx.group("model")
+    # (E, C, D) -> (M, E_loc, C, D) -> exchange -> (M, E_loc, C, D)
+    # source-major
+    recv = _AllToAll.apply(buf.reshape(model_size, e_loc, cap, D), model)
+    toks = recv.transpose(0, 1).reshape(e_loc, model_size * cap, D)
+    w_gate, w_up, w_down = _gathered_weights(w_gate, w_up, w_down, ctx)
+    y = _expert_ffn(w_gate.to(xb.dtype), w_up.to(xb.dtype),
+                    w_down.to(xb.dtype), toks, cfg.act).to(xb.dtype)
+    y = y.reshape(e_loc, model_size, cap, D).transpose(0, 1)
+    back = _AllToAll.apply(y, model).reshape(cfg.n_experts * cap, D)
+    gathered = back[torch.clamp(slot, 0, cfg.n_experts * cap - 1)]
+    contrib = (gathered.float() * gate[:, None]).reshape(T, k, D)
+    # each token's k contributions sum in pick order (the scatter-add's
+    # order: its slots are consecutive)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    return out.to(xb.dtype).reshape(Bl, Sl, D), aux
+
+
+def _moe_body_replicated(xb, router, w_gate, w_up, w_down, cfg: ModelConfig,
+                         model_size: int, model_idx: int, ctx: MeshCtx):
+    """Per-rank body (tokens replicated over 'model'; decode path)."""
+    Bl, Sl, D = xb.shape
+    xf = xb.reshape(-1, D)
+    probs, gate_vals, gate_idx = _route(xf.float(), router.float(),
+                                        cfg.moe_topk)
+    aux = _aux_loss(probs, gate_idx, cfg.n_experts)
+    e_loc = cfg.n_experts // model_size
+    w_gate, w_up, w_down = _gathered_weights(w_gate, w_up, w_down, ctx)
+    # every local expert on every token, weighted by the routing gates
+    y = _expert_ffn(w_gate.to(xb.dtype), w_up.to(xb.dtype),
+                    w_down.to(xb.dtype), xf, cfg.act)     # (E_loc, T, D)
+    local_ids = model_idx * e_loc + torch.arange(e_loc, device=xf.device)
+    gates = torch.sum(gate_vals[None]
+                      * (gate_idx[None] == local_ids[:, None, None]), -1)
+    out = torch.einsum("et,etd->td", gates.float(), y.float())
+    model = ctx.group("model")
+    out = _Psum.apply(out, model)
+    aux = _Psum.apply(aux, model) / model_size
+    return out.to(xb.dtype).reshape(Bl, Sl, D), aux
+
+
+def _batch_block(ctx: MeshCtx):
+    """(this rank's block index, the block count) along the batch axes."""
+    idx, n = 0, 1
+    for name in _batch_names():
+        size = ctx.size(name)
+        idx, n = idx * size + ctx.index(name), n * size
+    return idx, n
+
+
+def _batch_names():
+    ba = batch_axes()
+    return (ba,) if isinstance(ba, str) else tuple(ba)
+
+
+def _split(t: torch.Tensor, dim: int, idx: int, n: int) -> torch.Tensor:
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n} mesh blocks")
+    size = t.shape[dim] // n
+    return t.narrow(dim, idx * size, size)
+
+
+def _expert_block(w: torch.Tensor, ctx: MeshCtx,
+                  fsdp_axis: int) -> torch.Tensor:
+    """This rank's block of an (E, ., .) expert stack: its experts over
+    'model' and its FSDP shard over 'data' on `fsdp_axis`."""
+    w = _split(w, 0, ctx.index("model"), ctx.size("model"))
+    return _split(w, fsdp_axis, ctx.index("data"), ctx.size("data"))
+
+
+def _gather_blocks(y: torch.Tensor, ctx: MeshCtx, seq: bool) -> torch.Tensor:
+    """Every rank's output block back to the global (B, S, D): over
+    'model' along the sequence (a2a path), then over the batch axes,
+    innermost first."""
+    if seq:
+        y = _GatherBlocks.apply(y, ctx.group("model"), 1)
+    for name in reversed(_batch_names()):
+        y = _GatherBlocks.apply(y, ctx.group(name), 0)
+    return y
+
+
+def _from_origin(aux: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """The aux loss of the rank at mesh coordinate 0, on every rank: each
+    rank zeroes its own unless it is that rank, and the sums run over
+    every mesh axis."""
+    origin = all(ctx.index(name) == 0 for name in ctx.axis_names)
+    aux = aux * float(origin)
+    for name in ctx.axis_names:
+        aux = _Psum.apply(aux, ctx.group(name))
+    return aux
+
+
+def _moe_stacked(params: Params, x: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`moe_reference`'s function with the experts stacked (see the module
     docstring).  x (B, S, D) -> (y (B, S, D), aux)."""
     D = x.shape[-1]
@@ -150,3 +454,44 @@ def moe(params: Params, x: torch.Tensor, cfg: ModelConfig
         out[s:s + chunk] = torch.cumsum(contrib, dim=0)[-1]
     aux = _aux_loss(probs, gate_idx, E)
     return _finish(params, out, x, cfg), aux
+
+
+def moe(params: Params, x: torch.Tensor, cfg: ModelConfig,
+        decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y (B, S, D), aux).  Without a mesh: the stacked
+    form of `moe_reference`.  Under a mesh: the replicated-token body for
+    `decode` or one-token inputs, else the all-to-all body (see the module
+    docstring)."""
+    ctx = current_mesh()
+    if ctx is None:
+        return _moe_stacked(params, x, cfg)
+    x = _Replicated.apply(x, ctx)
+    params = {k: ({n: _Replicated.apply(w, ctx) for n, w in v.items()}
+                  if isinstance(v, dict) else _Replicated.apply(v, ctx))
+              for k, v in params.items()}
+    model_size = ctx.size("model")
+    model_idx = ctx.index("model")
+    replicated = decode or x.shape[1] == 1
+    b_idx, n_b = _batch_block(ctx)
+    xb = _split(x, 0, b_idx, n_b)
+    if not replicated:
+        xb = _split(xb, 1, model_idx, model_size)
+    wg = _expert_block(params["w_gate"], ctx, 1)
+    wu = _expert_block(params["w_up"], ctx, 1)
+    wd = _expert_block(params["w_down"], ctx, 2)
+    if replicated:
+        y, aux = _moe_body_replicated(xb, params["router"], wg, wu, wd, cfg,
+                                      model_size, model_idx, ctx)
+    else:
+        y, aux = _moe_body_a2a(xb, params["router"], wg, wu, wd, cfg,
+                               model_size, ctx)
+    if "shared" in params:
+        shared = mlp(params["shared"], xb, cfg.act)
+        if replicated:
+            # the block is every model rank's; only model rank 0's copy
+            # carries a gradient, so the ranks' shares add up once
+            shared = _Owned.apply(shared, model_idx == 0)
+        y = y + shared
+    y = _gather_blocks(y, ctx, seq=not replicated)
+    aux = _from_origin(aux, ctx)
+    return y, aux

@@ -181,6 +181,28 @@ def _mamba_scan_grad(h, x_c, dt, Bc, Cc, A, n_steps: int):
     return torch.cat(ys).transpose(0, 1), h
 
 
+def mamba_specs(cfg: ModelConfig) -> Params:
+    return {
+        "w_in": ("fsdp", "tp"), "conv": (None, "tp"),
+        "w_xproj": ("tp", None), "w_dt": (None, "tp"), "dt_bias": ("tp",),
+        "A_log": ("tp", None), "D": ("tp",), "w_out": ("tp", "fsdp"),
+    }
+
+
+def mlstm_specs(cfg: ModelConfig) -> Params:
+    return {
+        "w_in": ("fsdp", "tp"), "w_q": ("fsdp", "tp"), "w_k": ("fsdp", "tp"),
+        "w_v": ("fsdp", "tp"), "w_if": ("fsdp", None), "if_bias": (None,),
+        "norm": {"scale": (None,)}, "w_out": ("tp", "fsdp"),
+    }
+
+
+def slstm_specs(cfg: ModelConfig) -> Params:
+    return {"w_gates": ("fsdp", "tp"), "r_gates": (None, None, None),
+            "gate_bias": (None,), "norm": {"scale": (None,)},
+            "w_out": ("fsdp", "tp")}
+
+
 def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
           cache: Optional[Params] = None, make_cache: bool = False,
           valid_len: Optional[int] = None

@@ -19,7 +19,9 @@ CPU, which is what makes greedy tokens identical near ties.
 Training rematerializes every block, as the reference's `jax.checkpoint`
 does: with `cfg.remat`, no cache, no `make_cache` and autograd on, each
 block runs inside `torch.utils.checkpoint`, which saves only the block's
-input and runs the block again in the backward pass.
+input and runs the block again in the backward pass, under the mesh the
+forward ran under (autograd runs a CUDA backward on a thread of its own,
+where the thread-local mesh is not installed).
 """
 from __future__ import annotations
 
@@ -28,11 +30,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.nn.attention import attention
+from repro_torch.nn.attention import attention, attention_specs
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.layers import mlp, rmsnorm
-from repro_torch.nn.moe import moe
-from repro_torch.nn.ssm import mamba, mlstm, slstm
+from repro_torch.nn.layers import mlp, mlp_specs, rmsnorm, rmsnorm_specs
+from repro_torch.nn.moe import moe, moe_specs
+from repro_torch.nn.ssm import (mamba, mamba_specs, mlstm, mlstm_specs, slstm,
+                                slstm_specs)
+from repro_torch.parallel.sharding import current_mesh, use_ctx
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -73,6 +77,39 @@ def stack_plan(cfg: ModelConfig, min_group: int = 4) -> List[Tuple[int, int, boo
             segs.extend((k, 1, False) for k in range(i, j))
         i = j
     return segs
+
+
+def block_specs(cfg: ModelConfig, i: int) -> Params:
+    kind = layer_kind(cfg, i)
+    s: Params = {"norm1": rmsnorm_specs()}
+    if kind == "mlstm":
+        s["cell"] = mlstm_specs(cfg)
+        return s
+    if kind == "slstm":
+        s["cell"] = slstm_specs(cfg)
+        return s
+    s["attn"] = attention_specs(cfg)
+    if kind == "hybrid":
+        s["mamba"] = mamba_specs(cfg)
+    s["norm2"] = rmsnorm_specs()
+    if cfg.layer_is_moe[i]:
+        s["moe"] = moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg.gated)
+    return s
+
+
+def stack_specs(cfg: ModelConfig) -> Params:
+    """The stack's spec tree: a stacked segment's specs gain a leading
+    None (its layer axis is never split)."""
+    segments = []
+    for start, length, scanned in stack_plan(cfg):
+        base = block_specs(cfg, start)
+        if scanned:
+            base = tree_map(lambda spec: (None,) + tuple(spec), base,
+                            is_leaf=lambda x: isinstance(x, tuple))
+        segments.append(base)
+    return {"segments": segments}
 
 
 def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
@@ -119,11 +156,21 @@ def apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, i: int, *,
     mid = x.to(act).float() + y.float()
     h2 = rmsnorm(bp["norm2"], mid, cfg.norm_eps).to(act)
     if "moe" in bp:
-        y2, aux = moe(bp["moe"], h2, cfg)
+        # multi-token chunked prefill takes the batch routing path (same
+        # numerics as the monolithic prefill); only true one-token steps
+        # use the replicated-token decode strategy
+        y2, aux = moe(bp["moe"], h2, cfg,
+                      decode=(cache is not None and x.shape[1] == 1))
     else:
         y2, aux = mlp(bp["mlp"], h2, cfg.act), torch.zeros((), device=x.device)
     out = mid.to(act).float() + y2.float()
     return out, new_cache, aux
+
+
+def _block_under(ctx, *args, **kw):
+    """`apply_block` under the mesh `ctx` (a rematerialized block)."""
+    with use_ctx(ctx):
+        return apply_block(*args, **kw)
 
 
 def _unstack(tree: Params) -> List[Params]:
@@ -152,10 +199,11 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     aux_total = torch.zeros((), device=x.device)
     remat = (cfg.remat and caches is None and not make_cache
              and torch.is_grad_enabled())
+    mesh = current_mesh()
 
     def block(bp, x, i, cache, kw):
         if remat:
-            return checkpoint(apply_block, bp, x, cfg, i, cache=None,
+            return checkpoint(_block_under, mesh, bp, x, cfg, i, cache=None,
                               use_reentrant=False, **kw)
         return apply_block(bp, x, cfg, i, cache=cache, **kw)
 

@@ -8,27 +8,36 @@ and the optimizer's global norm follow."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """Apply `fn` leafwise over trees of identical structure.  Dicts and
-    lists/tuples are containers; None stays None; anything else is a leaf."""
+    lists/tuples are containers; None stays None; anything else is a leaf,
+    and so is any node for which `is_leaf` holds (a spec tree's tuples)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
                           for i, t in enumerate(tree))
     if tree is None:
         return None
     return fn(tree, *rest)
 
 
-def tree_leaves(tree: Any) -> List[Any]:
+def tree_leaves(tree: Any,
+                is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Any]:
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in tree for x in tree_leaves(tree[k])]
+        return [x for k in tree for x in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in tree_leaves(t)]
+        return [x for t in tree for x in tree_leaves(t, is_leaf)]
     if tree is None:
         return []
     return [tree]

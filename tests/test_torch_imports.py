@@ -2,7 +2,9 @@
 jax and no module of the reference package `repro`, and neither the port's
 sources, its example arms (`examples/*_torch.py`) nor `chip_smoke.py` name
 them in an import.  `repro_torch.core` and `repro_torch.sim` import each
-other (the scheduler runs the simulator): either may be imported first."""
+other (the scheduler runs the simulator): either may be imported first.
+The mesh layer's modules (`parallel/`, `launch/{mesh,shapes}.py`) each
+import alone with the reference's names."""
 import os
 import pathlib
 import re
@@ -61,3 +63,38 @@ def test_the_core_sim_cycle_imports_from_either_side(first):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# the mesh layer's modules and the reference names each keeps
+MESH_MODULES = {
+    "repro_torch.parallel": ("MeshCtx", "batch_axes", "current_mesh",
+                             "make_spec", "set_mesh", "shard", "use_mesh"),
+    "repro_torch.parallel.sharding": ("_LOGICAL", "_resolve",
+                                      "named_sharding", "NamedSharding",
+                                      "PartitionSpec"),
+    "repro_torch.parallel.compression": (
+        "BLOCK", "_quantize_blockwise", "_dequantize_blockwise",
+        "compressed_psum_pod", "compression_ratio_bytes"),
+    "repro_torch.launch.mesh": ("make_production_mesh", "make_debug_mesh"),
+    "repro_torch.launch.shapes": ("SHAPES", "ShapeSpec"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(MESH_MODULES))
+def test_the_mesh_layer_modules_import_alone(module):
+    """Each imports by itself, with the reference's names, loading no jax
+    and no reference module and starting no process group."""
+    code = (f"import importlib, sys\n"
+            f"m = importlib.import_module({module!r})\n"
+            f"missing = [n for n in {MESH_MODULES[module]!r} "
+            f"if not hasattr(m, n)]\n"
+            "import torch.distributed as dist\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or "
+            "n.startswith('jax.') or n == 'repro' or "
+            "n.startswith('repro.'))\n"
+            "print(missing, bad, dist.is_initialized())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] [] False", out.stdout
