@@ -175,7 +175,21 @@ Phases (any failure exits non-zero before the last line):
      versions (every leaf within 3e-2); and the trainer at smoke size
      checkpointing and resuming on the card, the resumed lines equal to an
      uninterrupted run's;
- 15. print the `kernels` JSON line, then the result line.
+ 15. the dry run and the roofline (`repro_torch.launch.dryrun`): two cells
+     counted on `meta` tensors under a fake 512-rank process group in this
+     process, minicpm-2b's train_4k on the (16, 16) mesh with its roofline
+     and deepseek-v2-lite-16b's decode_32k on the (2, 16, 16) mesh as a
+     sharding-proof run (per-device GB, fits, the three terms and the
+     dominant one), no process group left after either and no kernel
+     launched; the roofline's HBM size against the card's; then one
+     minicpm-2b training step at phase 14's B 4 x S 2,048 counted by the
+     same code on `meta` and on the card (the flash kernel launched 80
+     times, its tally by the formula of its `meta` route): FLOPs and bytes
+     equal to COUNT_TOL, and the step's measured wall at or above the
+     roofline bound of one card (the larger of FLOPs over the bf16 peak
+     and bytes over the HBM rate), its share of the bound printed beside
+     the card's name and power limit;
+ 16. print the `kernels` JSON line, then the result line.
 
 The script imports nothing of JAX or of the JAX package.  Exits non-zero
 without a result when no CUDA device is visible.
@@ -4375,6 +4389,160 @@ def training(torch, card):
                       "smoke_checkpoint": ckpt, "seconds": secs}
 
 
+# ------------------------------------------------------------ phase 15
+# (arch, shape, multi-pod) of the dry-run cells: a train cell with its
+# roofline and a multi-pod MoE decode cell, the reference's
+# sharding-proof run (no roofline)
+DRYRUN_CELLS = (("minicpm-2b", "train_4k", False),
+                ("deepseek-v2-lite-16b", "decode_32k", True))
+# FLOPs and bytes of one step counted on `meta` and on the card: the same
+# aten ops and the same kernel formula, so equal but for float sums
+COUNT_TOL = 1e-6
+
+
+def dryrun_cells(torch, card):
+    """Phase 15a: each DRYRUN_CELLS cell through `run_cell`, in this
+    process; no process group may be left and no kernel launched."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline.analysis import HW
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"roofline HBM size {HW['hbm_bytes']:,} bytes against the card's "
+        f"{total:,} ({HW['hbm_bytes'] / total:.3f})")
+    if not 0.9 <= HW["hbm_bytes"] / total <= 1.0:
+        raise AssertionError("roofline HW['hbm_bytes'] is not this card's "
+                             "HBM size")
+    cells = {}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        cell = run_cell(arch, shape, multi_pod)
+        secs = time.perf_counter() - t0
+        if dist.is_initialized():
+            raise AssertionError(f"dry run {arch} {shape}: a process group "
+                                 f"is left")
+        roof = cell["roofline"]
+        if (roof is None) != multi_pod:
+            raise AssertionError(f"dry run {arch} {shape}: roofline "
+                                 f"{roof!r} on mesh {cell['mesh']}")
+        terms = ("" if roof is None else
+                 f", compute {roof['compute_s']:.4g} s, memory "
+                 f"{roof['memory_s']:.4g} s, collective "
+                 f"{roof['collective_s']:.4g} s, dominant {roof['dominant']},"
+                 f" useful-FLOPs {roof['useful_flops_ratio']:.3f}")
+        log(f"dry run {arch} {shape} {cell['mesh']} ({cell['chips']} chips, "
+            f"{cell['count']}): {cell['per_device_gb']} GB a device, fits "
+            f"{cell['fits_hbm']}{terms}; kernel calls counted "
+            f"{cell['kernel_calls']}, collectives "
+            f"{cell['collective_ops_full_hlo']}; {secs:.1f} s")
+        cells[f"{arch}/{shape}/{cell['mesh']}"] = {
+            "per_device_gb": cell["per_device_gb"],
+            "fits_hbm": cell["fits_hbm"], "seconds": secs,
+            "roofline": None if roof is None else {
+                k: roof[k] for k in ("compute_s", "memory_s", "collective_s",
+                                     "dominant", "useful_flops_ratio")}}
+    return cells
+
+
+def step_vs_count(torch, card):
+    """Phase 15b: one minicpm-2b training step at B TRAIN_B x S TRAIN_S
+    counted by the dry run's code on `meta` tensors and on the card; the
+    counts must agree, and the measured step wall must sit at or above
+    the roofline bound of one card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _model_flops, count_step
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.tree import tree_map
+    cfg = get_config(TRAIN_ARCH)
+    params, batch = train_params(torch, cfg), train_batch(torch, cfg)
+    opt = adamw_init(params)
+
+    def on_meta(tree):
+        return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+    step_fn = make_train_step(cfg, peak_lr=FALL_LR, warmup=1)
+    _, meta, meta_s = count_step(
+        step_fn, (on_meta(params), adamw_init(on_meta(params)),
+                  on_meta(batch), 1), train=True)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    _, chip, chip_s = count_step(step_fn, (params, opt, batch, 1),
+                                 train=True)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    rel = {k: abs(chip[k] - meta[k]) / max(abs(meta[k]), 1.0)
+           for k in ("flops", "bytes")}
+    log(f"one {TRAIN_ARCH} train step B{TRAIN_B} S{TRAIN_S} counted on "
+        f"meta ({meta_s:.1f} s) and on the card ({chip_s:.1f} s): FLOPs "
+        f"{meta['flops']:,} / {chip['flops']:,}, bytes {meta['bytes']:,} / "
+        f"{chip['bytes']:,} (relative {rel['flops']:.3g}, {rel['bytes']:.3g};"
+        f" tolerance {COUNT_TOL}); kernel calls {meta['kernels']} / "
+        f"{chip['kernels']}; launches {launches}")
+    if max(rel.values()) > COUNT_TOL or meta["kernels"] != chip["kernels"]:
+        raise AssertionError("the step's counts on meta and on the card "
+                             "differ")
+    if launches["flash_attention"] != chip["kernels"].get("flash_attention"):
+        raise AssertionError("the card's tally and its flash launches differ")
+    walls = []
+    for step in range(2, 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, step)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    spec = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_S,
+                               global_batch=TRAIN_B)
+    roof = roofline_terms(
+        arch=TRAIN_ARCH, shape=f"train B{TRAIN_B} S{TRAIN_S}",
+        mesh_name="one card", chips=1,
+        cost_analysis={"flops": chip["flops"], "bytes accessed": chip["bytes"]},
+        hlo_text="", model_flops_global=_model_flops(cfg, spec))
+    bound_s = max(roof.compute_s, roof.memory_s)
+    wall = min(walls)
+    log(f"the step's roofline on one card ({card}): compute "
+        f"{roof.compute_s * 1e3:.2f} ms, memory {roof.memory_s * 1e3:.2f} "
+        f"ms, bound {bound_s * 1e3:.2f} ms by {roof.dominant}, useful-FLOPs "
+        f"{roof.useful_flops_ratio:.3f}; step walls "
+        f"{[f'{w * 1e3:.1f}' for w in walls]} ms, the fastest at "
+        f"{bound_s / wall:.1%} of its bound")
+    if wall < bound_s:
+        raise AssertionError(f"a step of {wall * 1e3:.1f} ms ran under its "
+                             f"roofline bound {bound_s * 1e3:.1f} ms: a "
+                             f"count is wrong")
+    del params, opt, batch
+    return launches, {
+        "flops": chip["flops"], "bytes": chip["bytes"],
+        "relative": rel, "kernels": chip["kernels"],
+        "count_s": {"meta": meta_s, "card": chip_s},
+        "compute_ms": roof.compute_s * 1e3, "memory_ms": roof.memory_s * 1e3,
+        "bound_ms": bound_s * 1e3, "bound_by": roof.dominant,
+        "walls_ms": [w * 1e3 for w in walls],
+        "share_of_bound": bound_s / wall}
+
+
+def dry_run(torch, card):
+    """Phase 15: the dry run's cells, then a step counted against the
+    card's own."""
+    t_phase = time.perf_counter()
+    zero_launch_counts()
+    cells = dryrun_cells(torch, card)
+    cell_launches = launch_counts()
+    if any(cell_launches.values()):
+        raise AssertionError(f"the dry run launched kernels: {cell_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_launches, step = step_vs_count(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"phase 15 (dry run and roofline): {secs:.1f} s ({card})")
+    return ({"cells": cell_launches, "counted_step": step_launches},
+            {"cells": cells, "step": step, "seconds": secs})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4693,6 +4861,12 @@ def main() -> int:
     log(f"phase 14 summary: {json.dumps(train_summary)}")
     train_fn = train_summary["function"]
 
+    # phase 15: the dry run and the roofline, and a step counted on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_launches, dry_summary = dry_run(torch, card)
+    log(f"phase 15 summary: {json.dumps(dry_summary)}")
+
     def family_fields(name):
         return {"families_launches": {
             arch: ({run: v[name] for run, v in runs.items()}
@@ -4714,7 +4888,9 @@ def main() -> int:
             run: v[name] for run, v in paper_launches.items()}}
 
     def training_fields(name):
-        return {"training_launches": train_launches[name]}
+        return {"training_launches": train_launches[name],
+                "dryrun_launches": {run: v[name]
+                                    for run, v in dry_launches.items()}}
 
     # report
     def planes_fields(name):

@@ -13,6 +13,12 @@ log-sum-exp (B, H, Sq), the statistic the training backward
 (`repro_torch.nn.flash`) recomputes its probabilities from; without it
 they write `o` alone, as the serving path launches them.
 
+A `meta` tensor (the dry run's shape-only count) takes neither: the
+wrapper returns empty outputs of the kernel's shapes and dtypes and adds
+the call's work (`work`) to the open tally (`repro_torch.kernels.counting`).
+A CUDA launch adds the same work by the same formula, so a step counted on
+`meta` and on the card agree.  Any other device raises.
+
 The bf16 kernel is built for head dims 32, 64, 128 and 256.  Any other
 multiple of 8 up to 256 is zero-padded along D to the next of those: zero
 columns add nothing to Q·Kᵀ, the true 1/sqrt(D) is passed as the scale,
@@ -27,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import aligned16, build
+from repro_torch.kernels import aligned16, build, nbytes, tally_work
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 
@@ -74,13 +80,54 @@ def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
     return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
 
 
+def attended_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs one (batch, head) attends: every pair, or under
+    the causal mask key j <= query i."""
+    if not causal:
+        return Sq * Skv
+    m = min(Sq, Skv)
+    return m * (m + 1) // 2 + (Sq - m) * Skv
+
+
+def work(q, k, v, causal: bool, return_lse: bool = False):
+    """(flops, bytes) of one call: 4·B·H·D a pair attended (Q·Kᵀ and P·V),
+    and q, k, v read once, o (and lse) written once, at the true D."""
+    B, Sq, H, D = q.shape
+    flops = 4 * B * H * D * attended_pairs(Sq, k.shape[1], causal)
+    n_bytes = 2 * nbytes(q) + nbytes(k, v)
+    return flops, n_bytes + (4 * B * H * Sq if return_lse else 0)
+
+
+def _kernel_width(q, k, v) -> int:
+    """The head dim the kernel for these inputs runs at (raises outside
+    the contract): the bf16 kernel's native width, or D for f32."""
+    D = q.shape[-1]
+    width = native_head_dim(D)
+    return D if kernel_for(q, k, v) == "flash_attention_f32" else width
+
+
+def _meta(q, k, v, causal: bool, return_lse: bool):
+    """The shape-only route: the launch's copies of its inputs (padding,
+    contiguity), empty outputs, and the call's work tallied."""
+    B, Sq, H, D = q.shape
+    call_work = work(q, k, v, causal, return_lse)
+    width = _kernel_width(q, k, v)
+    q = pad_head_dim(q, width).contiguous()
+    for t in (k, v):
+        pad_head_dim(t, width).contiguous()
+    tally_work("flash_attention", *call_work)
+    out = torch.empty_like(q)[..., :D]
+    if not return_lse:
+        return out
+    return out, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+
+
 def _launch(q, k, v, causal: bool, return_lse: bool = False):
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    call_work = work(q, k, v, causal, return_lse)
     library = kernel_for(q, k, v)
-    width = native_head_dim(D)             # raises outside the contract
-    if library == "flash_attention_f32":
-        width = D                          # every such width is native
+    width = _kernel_width(q, k, v)
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention: all inputs on one CUDA device")
@@ -102,6 +149,7 @@ def _launch(q, k, v, causal: bool, return_lse: bool = False):
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{build.launch_error(err)}")
     flash_attention.launches += 1
+    tally_work("flash_attention", *call_work)
     out = out if width == D else out[..., :D]
     return (out, lse) if return_lse else out
 
@@ -121,6 +169,8 @@ def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
             f"{k.shape[2]} KV heads — GQA grouping needs H % Hkv == 0")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, return_lse=return_lse)
+    if q.device.type == "meta":
+        return _meta(q, k, v, causal, return_lse)
     return _launch(q, k, v, causal, return_lse)
 
 

@@ -10,6 +10,11 @@ up with the memory).  One call is one launch: the last split of a row to
 finish merges the row's splits, so there is no second kernel.
 `paged_attention.launches` counts kernel launches, of either kernel, and
 nothing else.
+
+A `meta` tensor (the dry run's shape-only count) takes neither: the
+wrapper returns an empty output of the kernel's shape and dtype and adds
+the call's work (`work`) to the open tally (`repro_torch.kernels.counting`),
+as a CUDA launch adds the same formula's.  Any other device raises.
 """
 import ctypes
 import functools
@@ -18,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import aligned16, build
+from repro_torch.kernels import aligned16, build, nbytes, tally_work
 from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 
 
@@ -107,8 +112,33 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
+def work(q, k_pool, v_pool, tables, pos):
+    """(flops, bytes) of one call, counted over every position the page
+    tables name (the whole cache, as the reference's XLA path reads it):
+    4·H·D a position a row, each named page's K and V read once, q, the
+    tables and pos read, o written."""
+    B, H, D = q.shape
+    page, Hkv = k_pool.shape[1], k_pool.shape[2]
+    positions = B * tables.shape[1] * page
+    kv = positions * Hkv * D * (k_pool.element_size() + v_pool.element_size())
+    return 4 * H * D * positions, kv + 2 * nbytes(q) + nbytes(tables, pos)
+
+
+def _meta(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
+    """The shape-only route: the launch's copies of its inputs
+    (contiguity), an empty output, and the call's work tallied."""
+    call_work = work(q, k_pool, v_pool, tables, pos)
+    q = q.contiguous()
+    for t in (k_pool, v_pool, tables):
+        t.contiguous()
+    pos.to(torch.int32).contiguous()
+    tally_work("paged_attention", *call_work)
+    return torch.empty_like(q)
+
+
 def _launch(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
     B, H, D = q.shape
+    call_work = work(q, k_pool, v_pool, tables, pos)
     P, page, Hkv, _ = k_pool.shape
     T = tables.shape[1]
     library = kernel_for(q, k_pool, v_pool)
@@ -146,6 +176,7 @@ def _launch(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
     paged_attention.launches += 1
+    tally_work("paged_attention", *call_work)
     return out
 
 
@@ -170,6 +201,8 @@ def paged_attention(q, k_pool, v_pool, tables, pos) -> torch.Tensor:
             "int32 (physical page ids)")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, tables, pos)
+    if q.device.type == "meta":
+        return _meta(q, k_pool, v_pool, tables, pos)
     return _launch(q, k_pool, v_pool, tables, pos)
 
 

@@ -27,7 +27,6 @@ from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedules import cosine, wsd
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
                                            axis_size, make_spec)
-from repro_torch.serving.sampling import sample_tokens
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -227,6 +226,7 @@ def fused_paged_serve_step(params, token, caches, pos, page_table,
     """(`cached_fused_paged_serve_step`) paged decode step with sampling
     fused in: the logits stay on the device and only the (B,) int32 token
     ids come back.  Sampler controls as in `sample_tokens`."""
+    from repro_torch.serving.sampling import sample_tokens
     logits, caches = decode_step(params, token, caches, pos, cfg, page_table)
     toks = sample_tokens(logits, cfg.vocab, temperatures=temps,
                          top_ks=top_ks, keys=keys, steps=steps)
@@ -238,6 +238,7 @@ def sample_step(logits, vocab: int, temps: Sequence[float],
                 steps: Sequence[int]) -> torch.Tensor:
     """(`cached_sample_tokens`) batched sampler for the split path: one
     call per decode batch, never one host sync per row."""
+    from repro_torch.serving.sampling import sample_tokens
     return sample_tokens(logits, vocab, temperatures=temps, top_ks=top_ks,
                          keys=keys, steps=steps)
 

@@ -46,10 +46,18 @@ enter through `_Replicated`, whose backward sums the rank's share over
 the whole mesh, so every rank ends with the one-process gradient of `x`
 and of every MoE leaf, and a training step applies each rank's gradients
 as they are, with no reduction of its own.
+
+`recording_collectives()` makes the mesh bodies' collectives leave a
+(kind, result bytes, group size) record each, in this thread, for the dry
+run's collective term (`repro_torch.launch.dryrun`): the exchanges and
+gathers of `_exchange` / `_gather`, forward and backward, and `_Psum`'s
+all-reduce.  With no recorder open the bodies record nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Dict, Tuple
 
 import torch
@@ -198,6 +206,29 @@ def _pack_dispatch(xf, gate_vals, gate_idx, n_experts: int, capacity: int):
             torch.where(keep, flat_gate, torch.zeros_like(flat_gate)))
 
 
+_RECORDER = threading.local()
+
+
+@contextlib.contextmanager
+def recording_collectives():
+    """For the body of the `with`, in this thread: a list that every
+    collective of the mesh bodies appends (kind, result bytes, group size)
+    to, in `repro_torch.roofline.analysis`'s kind names."""
+    prev = getattr(_RECORDER, "records", None)
+    _RECORDER.records = records = []
+    try:
+        yield records
+    finally:
+        _RECORDER.records = prev
+
+
+def _record(kind: str, result: torch.Tensor, group) -> None:
+    records = getattr(_RECORDER, "records", None)
+    if records is not None:
+        records.append((kind, result.numel() * result.element_size(),
+                        dist.get_world_size(group)))
+
+
 # The collectives as autograd Functions over `torch.distributed` calls that
 # gloo and NCCL both run, so a training step differentiates through them.
 # Every rank computes the same loss from the global output, and each
@@ -215,13 +246,16 @@ def _exchange(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
+    _record("all-to-all", out, group)
     return out
 
 
 def _gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
+    _record("all-gather", out, group)
+    return out
 
 
 class _Replicated(torch.autograd.Function):
@@ -309,6 +343,7 @@ class _Psum(torch.autograd.Function):
     def forward(ctx, t, group):
         out = t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
+        _record("all-reduce", out, group)
         return out
 
     @staticmethod

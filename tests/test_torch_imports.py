@@ -4,7 +4,9 @@ sources, its example arms (`examples/*_torch.py`) nor `chip_smoke.py` name
 them in an import.  `repro_torch.core` and `repro_torch.sim` import each
 other (the scheduler runs the simulator): either may be imported first.
 The mesh layer's modules (`parallel/`, `launch/{mesh,shapes}.py`) each
-import alone with the reference's names."""
+import alone with the reference's names, and so do `launch.steps`, the dry
+run and the roofline package, none of them loading the fake process
+group."""
 import os
 import pathlib
 import re
@@ -98,3 +100,25 @@ def test_the_mesh_layer_modules_import_alone(module):
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] [] False", out.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.steps",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.roofline"])
+def test_the_step_and_dry_run_modules_import_alone(module):
+    """Each imports first in a fresh process (`launch.steps` imports the
+    sampler inside the functions that use it, so `serving`, which imports
+    `steps`, is not loaded half-way), loading no jax, no reference module
+    and not the fake process group, and starting no process group."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "import torch.distributed as dist\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or "
+            "n.startswith('jax.') or n == 'repro' or "
+            "n.startswith('repro.') or n.endswith('fake_pg'))\n"
+            "print(bad, dist.is_initialized())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False", out.stdout
