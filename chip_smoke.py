@@ -172,16 +172,22 @@ Phases (any failure exits non-zero before the last line):
      else launched; step walls, tokens/s, peak memory); make_train_step
      three times on one batch (the loss falls; the last step profiled);
      one step's loss and gradient through the kernels against the plain
-     versions (every leaf within 3e-2); and the trainer at smoke size
-     checkpointing and resuming on the card, the resumed lines equal to an
-     uninterrupted run's;
- 15. the dry run and the roofline (`repro_torch.launch.dryrun`): two cells
+     versions (every leaf within 3e-2); one step through the dense split
+     path under a one-rank NCCL debug mesh (params and moments placed in
+     the rank's blocks, every collective over one-rank groups) against the
+     no-mesh step, arms in turns (loss, ce and grad norm within F32_TOL,
+     80 flash launches, walls and peak memory); and the trainer at smoke
+     size checkpointing and resuming on the card, the resumed lines equal
+     to an uninterrupted run's;
+ 15. the dry run and the roofline (`repro_torch.launch.dryrun`): three cells
      counted on `meta` tensors under a fake 512-rank process group in this
-     process, minicpm-2b's train_4k on the (16, 16) mesh with its roofline
-     and deepseek-v2-lite-16b's decode_32k on the (2, 16, 16) mesh as a
-     sharding-proof run (per-device GB, fits, the three terms and the
-     dominant one), no process group left after either and no kernel
-     launched; the roofline's HBM size against the card's; then one
+     process: gemma-7b's and minicpm-2b's train_4k on the (16, 16) mesh as
+     rank 0's split step with their rooflines (per-device FLOPs, bytes and
+     collective bytes by kind and by mesh axis, the three terms and the
+     dominant one, beside PR 32's whole step over the chips), and
+     deepseek-v2-lite-16b's decode_32k on the (2, 16, 16) mesh as a
+     sharding-proof run (per-device GB, fits), no process group left after
+     any and no kernel launched; the roofline's HBM size against the card's; then one
      minicpm-2b training step at phase 14's B 4 x S 2,048 counted by the
      same code on `meta` and on the card (the flash kernel launched 80
      times, its tally by the formula of its `meta` route): FLOPs and bytes
@@ -4361,6 +4367,93 @@ def smoke_resume(torch):
             "bytes": n_bytes}
 
 
+def split_vs_whole(torch, cfg, card):
+    """Phase 14b: one step at full width through the dense split path
+    under a one-rank NCCL debug mesh (`make_debug_mesh(1, 1)`: the params
+    and moments placed into the rank's blocks, its collectives run over
+    one-rank groups) against the no-mesh step, on the same params and
+    batch, arms in turns (whole, split, split, whole), each from a fresh
+    copy and fresh moments: loss and ce within F32_TOL, the grad norm
+    within F32_TOL (one rank sums no partials), 2 flash launches a layer
+    and nothing else in each split step, and the split step's
+    collectives all over one-rank groups.  Walls and peak memory
+    printed."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_train_step, split_shardings
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.collectives import recording_collectives
+    from repro_torch.parallel.sharding import place, use_mesh
+    from repro_torch.tree import tree_map
+    params0, batch = train_params(torch, cfg), train_batch(torch, cfg)
+    step_fn = make_train_step(cfg, peak_lr=FALL_LR, warmup=1)
+    mesh = make_debug_mesh(1, 1)
+    runs = {"whole": [], "split": []}
+    launches = None
+    try:
+        with use_mesh(mesh):
+            psh = split_shardings(cfg, mesh)["params"]
+        for arm in ("whole", "split", "split", "whole"):
+            with (use_mesh(mesh) if arm == "split"
+                  else contextlib.nullcontext()):
+                params = (place(params0, psh) if arm == "split"
+                          else tree_map(torch.clone, params0))
+                opt = adamw_init(params)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_launch_counts()
+                t0 = time.perf_counter()
+                with recording_collectives() as recs:
+                    # the metrics alone: the returned state is the
+                    # arm's own tensors, freed with it
+                    m = step_fn(params, opt, batch, 1)[2]
+                    metrics = {k: float(v) for k, v in m.items()}
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            runs[arm].append({
+                **metrics, "wall_ms": wall,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "collectives": len(recs),
+                "model_axis": sum(1 for r in recs if r.axis == "model"),
+                "groups": sorted({r[2] for r in recs})})
+            if arm == "split":
+                want = dict({n: 0 for n in counts},
+                            flash_attention=2 * cfg.n_layers)
+                if counts != want:
+                    raise AssertionError(f"split step launches {counts}, "
+                                         f"want {want}")
+                launches = launches or counts
+            del params, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    w, sp = runs["whole"][0], runs["split"][0]
+    for r in runs["split"]:
+        if not (r["groups"] == [1] and r["model_axis"] > 0):
+            raise AssertionError(f"the split step's collectives: {r}")
+    for k in ("loss", "ce", "grad_norm"):
+        for r in runs["split"] + runs["whole"][1:]:
+            if abs(r[k] - w[k]) > F32_TOL * abs(w[k]):
+                raise AssertionError(f"split vs whole {k}: {r[k]} vs {w[k]}")
+    walls = {arm: [f"{r['wall_ms']:.1f}" for r in rs]
+             for arm, rs in runs.items()}
+    log(f"{TRAIN_ARCH} B{TRAIN_B} S{TRAIN_S} through the dense split path "
+        f"on a one-rank NCCL mesh ({card}): loss {sp['loss']:.6f} vs "
+        f"{w['loss']:.6f} whole, grad norm {sp['grad_norm']:.6f} vs "
+        f"{w['grad_norm']:.6f} (tolerance {F32_TOL} relative); "
+        f"{sp['collectives']} collectives recorded a step on this thread "
+        f"({sp['model_axis']} over model; the backward's run on autograd's "
+        f"thread), groups of {sp['groups']}; walls in turns (ms) whole "
+        f"{walls['whole']}, split {walls['split']}; peak memory "
+        f"whole {w['peak_gib']:.2f} GiB, split {sp['peak_gib']:.2f} GiB "
+        f"(the copy of the initial params included); launches "
+        f"{json.dumps(launches)}")
+    del params0, batch
+    return launches, runs
+
+
 def training(torch, card):
     """Phase 14: training at minicpm-2b's full width."""
     from repro_torch.configs import get_config
@@ -4379,22 +4472,32 @@ def training(torch, card):
     del params, batch
     gc.collect()
     torch.cuda.empty_cache()
+    split_launches, split = split_vs_whole(torch, cfg, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     ckpt = smoke_resume(torch)
     secs = time.perf_counter() - t_phase
     log(f"phase 14 (training): {secs:.1f} s ({card})")
-    return launches, {"function": fn, "cli_walls_ms": cli_walls,
-                      "cli_peak_gib": peak / 2**30,
-                      "tokens_per_s": TRAIN_B * TRAIN_S / cli_walls[-1] * 1e3,
-                      "loss_falls": falls, "vs_plain": vs_plain,
-                      "smoke_checkpoint": ckpt, "seconds": secs}
+    return ({"cli": launches, "split": split_launches},
+            {"function": fn, "cli_walls_ms": cli_walls,
+             "cli_peak_gib": peak / 2**30,
+             "tokens_per_s": TRAIN_B * TRAIN_S / cli_walls[-1] * 1e3,
+             "loss_falls": falls, "vs_plain": vs_plain,
+             "split_vs_whole": split, "smoke_checkpoint": ckpt,
+             "seconds": secs})
 
 
 # ------------------------------------------------------------ phase 15
-# (arch, shape, multi-pod) of the dry-run cells: a train cell with its
-# roofline and a multi-pod MoE decode cell, the reference's
-# sharding-proof run (no roofline)
-DRYRUN_CELLS = (("minicpm-2b", "train_4k", False),
+# (arch, shape, multi-pod) of the dry-run cells: the two dense train
+# cells (rank 0's split step) with their rooflines and a multi-pod MoE
+# decode cell, the reference's sharding-proof run (no roofline)
+DRYRUN_CELLS = (("gemma-7b", "train_4k", False),
+                ("minicpm-2b", "train_4k", False),
                 ("deepseek-v2-lite-16b", "decode_32k", True))
+# PR 32's counts of the two train cells, the whole step over 256 chips
+# (PERF.md section 5): compute, memory and collective ms a device
+DIVIDED_PR32 = {"gemma-7b": (278.8, 527.8, 6.7),
+                "minicpm-2b": (99.6, 594.8, 2.1)}
 # FLOPs and bytes of one step counted on `meta` and on the card: the same
 # aten ops and the same kernel formula, so equal but for float sums
 COUNT_TOL = 1e-6
@@ -4434,12 +4537,44 @@ def dryrun_cells(torch, card):
             f"{cell['fits_hbm']}{terms}; kernel calls counted "
             f"{cell['kernel_calls']}, collectives "
             f"{cell['collective_ops_full_hlo']}; {secs:.1f} s")
+        split = cell["dense_split"]
+        if (split is not None) != (arch in DIVIDED_PR32):
+            raise AssertionError(f"dry run {arch} {shape}: split {split}")
+        if split is not None:
+            # rank 0's split step, beside PR 32's whole step over the chips
+            if cell["collectives_not_counted"]:
+                raise AssertionError(f"{arch}: a split cell leaves out "
+                                     f"{cell['collectives_not_counted']}")
+            by_axis = cell["collectives_by_axis"]
+            if not by_axis["model"]["n_reduce-scatter"]:
+                raise AssertionError(f"{arch}: no model-axis transition")
+            coll = roof["collectives"]
+            log(f"  rank 0's split step: {roof['flops_per_device']:,.0f} "
+                f"FLOPs, {roof['bytes_per_device']:,.0f} bytes, "
+                f"{coll['total']:,.0f} collective wire bytes a device "
+                f"(by kind: " + ", ".join(
+                    f"{k} {coll[k]:,.0f} in {coll['n_' + k]}"
+                    for k in ("all-gather", "reduce-scatter", "all-reduce",
+                              "all-to-all")) + "; by axis: " + ", ".join(
+                    f"{a} {v['total']:,.0f}" for a, v in by_axis.items())
+                + f"); attention: {split['attention']}, "
+                f"{split['q_heads_per_rank']} query heads a rank; terms "
+                f"compute {roof['compute_s'] * 1e3:.1f} / memory "
+                f"{roof['memory_s'] * 1e3:.1f} / collective "
+                f"{roof['collective_s'] * 1e3:.1f} ms, dominant "
+                f"{roof['dominant']}; PR 32's whole step over the chips "
+                f"{' / '.join(map(str, DIVIDED_PR32[arch]))} ms")
         cells[f"{arch}/{shape}/{cell['mesh']}"] = {
             "per_device_gb": cell["per_device_gb"],
             "fits_hbm": cell["fits_hbm"], "seconds": secs,
+            "dense_split": cell["dense_split"],
+            "collectives": None if roof is None else roof["collectives"],
+            "collectives_by_axis": cell["collectives_by_axis"],
             "roofline": None if roof is None else {
                 k: roof[k] for k in ("compute_s", "memory_s", "collective_s",
-                                     "dominant", "useful_flops_ratio")}}
+                                     "dominant", "useful_flops_ratio",
+                                     "flops_per_device",
+                                     "bytes_per_device")}}
     return cells
 
 
@@ -4888,7 +5023,8 @@ def main() -> int:
             run: v[name] for run, v in paper_launches.items()}}
 
     def training_fields(name):
-        return {"training_launches": train_launches[name],
+        return {"training_launches": train_launches["cli"][name],
+                "split_step_launches": train_launches["split"][name],
                 "dryrun_launches": {run: v[name]
                                     for run, v in dry_launches.items()}}
 

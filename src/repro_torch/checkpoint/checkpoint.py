@@ -20,7 +20,13 @@ manifest names the logical dtype.
     continues;
     `wait_for_saves` joins the writers;
   * restore reads each leaf into the target's dtype and device and
-    raises on a shape mismatch.
+    raises on a shape mismatch;
+  * a state held in blocks over a mesh (the dense split path) passes its
+    sharding tree: save gathers the whole leaves on every rank and rank 0
+    writes them, in the same format; restore reads the whole leaves on
+    every rank and places this rank's blocks
+    (`parallel.sharding.place`), as the reference restores with
+    shardings.
 """
 from __future__ import annotations
 
@@ -33,7 +39,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.parallel.sharding import (gather_whole, map_placed, place,
+                                           whole_shape)
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 _SAVE_LOCK = threading.Lock()
@@ -58,7 +67,14 @@ def _dtype_name(t) -> str:
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
-                    block: bool = True) -> None:
+                    block: bool = True, shardings: Any = None) -> None:
+    """Write `tree` as step `step`.  With `shardings` (a state in blocks
+    over a mesh) every rank calls it: the whole leaves are gathered and
+    rank 0 writes them."""
+    if shardings is not None:
+        tree = gather_whole(tree, shardings)
+        if dist.get_rank() != 0:
+            return
     leaves = tree_flatten(tree)
     host = [_to_host(t) for t in leaves]
     manifest = {
@@ -103,24 +119,32 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, target: Any) -> Any:
+def restore_checkpoint(directory: str, step: int, target: Any,
+                       shardings: Any = None) -> Any:
     """Restore into the structure of ``target``: each leaf takes the
     target leaf's dtype and device.  Raises ValueError when a stored
-    shape differs from the target's."""
+    shape differs from the target's.  With `shardings` the target holds
+    this rank's blocks: the whole leaves are read and placed."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         stored = [leaf["dtype"] for leaf in json.load(f)["leaves"]]
     leaves = tree_flatten(target)
+    shapes = [tuple(t.shape) for t in leaves]
+    if shardings is not None:
+        shapes = [tuple(t.shape) for t in tree_flatten(map_placed(
+            lambda _, t, sh: torch.empty(whole_shape(t.shape, sh),
+                                         device="meta"), target, shardings))]
     out = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, shape) in enumerate(zip(leaves, shapes)):
         a = np.load(os.path.join(path, f"arr_{i}.npy"))
-        if list(a.shape) != list(ref.shape):
+        if tuple(a.shape) != shape:
             raise ValueError(f"leaf {i}: checkpoint shape {a.shape} != "
-                             f"target {tuple(ref.shape)}")
+                             f"target {shape}")
         if stored[i] == "bfloat16" or (a.dtype == np.uint16
                                        and ref.dtype == torch.bfloat16):
             t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(a)
         out.append(t.to(device=ref.device, dtype=ref.dtype))
-    return tree_unflatten(target, out)
+    out = tree_unflatten(target, out)
+    return out if shardings is None else place(out, shardings)

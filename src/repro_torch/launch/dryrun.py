@@ -20,26 +20,38 @@ no compiler to ask, so the port counts:
     up as DTensor rounds it; alias bytes follow the reference's donated
     arguments (params and optimizer state in training, caches in decode);
   * FLOPs and bytes: the cell's step run once on `meta` tensors at full
-    depth over the global batch, FLOPs by `FlopCounterMode`, bytes as the
-    sum of every aten op's input and output bytes (views and empty
-    allocations move none) — eager PyTorch's unfused count, not a fused
-    program's — plus the attention kernels' tallies (their `meta` routes
-    count by formula); divided by the chip count, the split the sharding
-    trees describe (the port's dense layers do not split themselves:
-    `shard()` returns its input).  Without a mesh the port's MoE layer
-    evaluates every expert over every token, and so does this count;
+    depth, FLOPs by `FlopCounterMode`, bytes as the sum of every aten op's
+    input and output bytes (views and empty allocations move none) —
+    eager PyTorch's unfused count, not a fused program's — plus the
+    attention kernels' tallies (their `meta` routes count by formula).  A
+    training cell that the step splits (`launch.steps.split_shardings`:
+    the dense GQA families) runs rank 0's split step under the fake mesh:
+    its blocks of the params and moments, its block of the batch, its
+    heads, ff and vocab, so the count is rank 0's per-device count as it
+    is.  Every other cell runs
+    the whole step over the global batch, divided by the chip count (the
+    split the sharding trees describe; those layers do not split
+    themselves).  Without a mesh the port's MoE layer evaluates every
+    expert over every token, and so does this count;
   * temp bytes: the peak of live bytes the step allocates (outputs
-    aside), over the chip count;
-  * collectives: one MoE layer run on `meta` under the fake mesh as rank 0
-    records its all-to-alls, gathers and all-reduces (forward, and in
-    training the remat's second forward and the backward), times the MoE
-    layers; plus the parameter traffic the placements imply: an all-gather
-    over `data` of each FSDP-split leaf for each use (forward, and the
-    remat's recompute in training) and in training each leaf's gradient
-    reduced over the batch axes (a reduce-scatter over `data` for a split
-    leaf, else an all-reduce; an all-reduce over `pod`).  Not counted:
-    tensor-parallel activation reductions, which the port does not issue,
-    and `_Replicated`'s gradient sums, which stand in for them.
+    aside): rank 0's in a split cell, else over the chip count;
+  * collectives: a split cell's are the ones its step issues, each
+    recorded as rank 0 runs it (`parallel.collectives`): the sequence
+    gathers and scatters over `model` around attention, the MLP, the
+    embedding and the loss, the FSDP gathers over `data` and their
+    gradients' reduce-scatters, the loss's reductions over `model`, the
+    gradients' all-reduces over the axes a leaf is not split over and the
+    global norm's.  In every other cell: one MoE layer run on `meta` under
+    the fake mesh as rank 0 records its all-to-alls, gathers and
+    all-reduces (forward, and in training the remat's second forward and
+    the backward), times the MoE layers; plus the parameter traffic the
+    placements imply: an all-gather over `data` of each FSDP-split leaf
+    for each use (forward, and the remat's recompute in training) and in
+    training each leaf's gradient reduced over the batch axes (a
+    reduce-scatter over `data` for a split leaf, else an all-reduce; an
+    all-reduce over `pod`).  Not counted there: tensor-parallel activation
+    reductions, which those layers do not issue, and `_Replicated`'s
+    gradient sums, which stand in for them.
 
 Counting on `meta` compiles nothing, so there are no depth probes:
 `probe` is the full-depth count with `probe_depths` (n_layers,).
@@ -79,10 +91,14 @@ from repro_torch.launch.steps import (
     make_train_step,
     opt_shardings,
     param_shardings,
+    split_shardings,
 )
-from repro_torch.nn.moe import moe, recording_collectives
+from repro_torch.nn.attention import head_plan
+from repro_torch.nn.moe import moe
+from repro_torch.parallel.collectives import recording_collectives
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
-                                           axis_size, make_spec, use_mesh)
+                                           axis_size, local_shape,
+                                           make_spec, place, use_mesh)
 from repro_torch.roofline.analysis import (HW, collective_bytes_from_records,
                                            roofline_terms)
 from repro_torch.tree import tree_flatten, tree_map
@@ -92,7 +108,9 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 FAKE_WORLD = 512
 COUNT = "meta, unfused"
-NOT_COUNTED = ("tensor-parallel activation reductions (the port issues "
+# what the cells whose layers do not split leave out of their collective
+# term (a split cell records every collective its step issues)
+NOT_COUNTED = ("tensor-parallel activation reductions (these layers issue "
                "none)", "_Replicated's gradient sums over the mesh")
 
 # aten ops that move no bytes and are not views by their schema:
@@ -201,18 +219,6 @@ def _pairs(values, shardings, path=()):
         for f in dataclasses.fields(shardings):
             yield from _pairs(getattr(values, f.name),
                               getattr(shardings, f.name), path + (f.name,))
-
-
-def local_shape(shape, sharding: NamedSharding):
-    """A leaf's per-device shape under its placements (uneven splits
-    rounded up, as DTensor's first shards are)."""
-    from torch.distributed.tensor import Shard
-    shape = list(shape)
-    mesh = sharding.mesh
-    for i, p in enumerate(sharding.placements()):
-        if isinstance(p, Shard):
-            shape[p.dim] = -(-shape[p.dim] // mesh.size(i))
-    return tuple(shape)
 
 
 def local_bytes(values, shardings) -> int:
@@ -354,6 +360,38 @@ def param_records(aparams, psh, mesh, train: bool):
     return out
 
 
+# ------------------------------------------------------ a split step
+def split_count(fn, args, shardings, mesh):
+    """Rank 0's split training step on `meta` under the fake mesh: its
+    blocks of the whole abstract params and moments (`place`), the global
+    batch (the step takes its block).  (its arguments, outputs, counts,
+    wall seconds, the collectives it issued)."""
+    with use_mesh(mesh):
+        local = (place(args[0], shardings[0]), place(args[1], shardings[1]),
+                 *args[2:])
+        with recording_collectives() as records:
+            out, counts, secs = count_step(fn, local, train=True)
+    return local, out, counts, secs, records
+
+
+def split_layout(cfg, mesh) -> dict:
+    """How rank 0 of a split cell divides attention: whole query heads
+    over `model`, or every head on each model rank where they do not
+    divide (`nn.attention.head_plan`)."""
+    model = axis_size(mesh, "model")
+    plan = head_plan(cfg.n_heads, cfg.n_kv_heads, model, 0)
+    return {
+        "rank": 0, "model": model,
+        "attention": ("every head on each model rank (the query heads do "
+                      "not divide over model; the attention weights' model "
+                      "blocks are gathered)" if plan is None else
+                      "query heads split over model"),
+        "q_heads_per_rank": cfg.n_heads if plan is None else plan[1],
+        "kv_heads_per_rank": (cfg.n_kv_heads if plan is None
+                              else len(set(plan[2]))),
+    }
+
+
 # ---------------------------------------------------------------- a cell
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              smoke: bool = False, skip_probes: bool = False,
@@ -368,23 +406,36 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     with fake_mesh(multi_pod) as mesh:
         chips = mesh.size()
+        split = (spec.kind == "train"
+                 and split_shardings(cfg, mesh) is not None)
         with use_mesh(mesh):
             fn, args, shardings, donated, out_sh = _cell_inputs(cfg, spec,
                                                                 mesh)
         aparams = args[0]
-        records, note = moe_records(cfg, spec, aparams, mesh)
-        records += param_records(aparams, shardings[0], mesh,
-                                 spec.kind == "train")
+        if split:
+            local_args, out, counts, t_lower, records = split_count(
+                fn, args, shardings, mesh)
+            note, per = None, 1
+            split_d = split_layout(cfg, mesh)
+        else:
+            records, note = moe_records(cfg, spec, aparams, mesh)
+            records += param_records(aparams, shardings[0], mesh,
+                                     spec.kind == "train")
+            per, split_d = chips, None
     coll = collective_bytes_from_records(records, default_group=chips)
 
-    out, counts, t_lower = count_step(fn, args, spec.kind == "train")
+    if not split:
+        out, counts, t_lower = count_step(fn, args, spec.kind == "train")
     args_b = sum(local_bytes(a, s) for a, s in zip(args, shardings)
                  if s is not None)
-    out_b = local_bytes(out, out_sh(out))
+    # a split step returns its blocks: price the outputs by the whole
+    # leaves they are blocks of (the donated params and moments)
+    out_b = local_bytes((args[0], args[1], out[2]) if split else out,
+                        out_sh(out))
     alias_b = sum(local_bytes(args[i], shardings[i]) for i in donated)
-    in_ids = {id(t) for t in _leaves(args)}
+    in_ids = {id(t) for t in _leaves(local_args if split else args)}
     new_out = sum(_nbytes(t) for t in _leaves(out) if id(t) not in in_ids)
-    temp_b = max(counts["peak"] - new_out, 0) // chips
+    temp_b = max(counts["peak"] - new_out, 0) // per
     mem_d = {"argument_size_in_bytes": args_b,
              "output_size_in_bytes": out_b,
              "temp_size_in_bytes": temp_b,
@@ -393,8 +444,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     probe = None
     if not multi_pod and not skip_probes:
-        probe = {"flops": counts["flops"] / chips,
-                 "bytes": counts["bytes"] / chips, "coll": coll["total"],
+        probe = {"flops": counts["flops"] / per,
+                 "bytes": counts["bytes"] / per, "coll": coll["total"],
                  "probe_depths": (cfg.n_layers,)}
     report = None
     if probe is not None:
@@ -425,9 +476,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "probe": probe,
         "roofline": report.as_dict() if report else None,
         "count": COUNT,
-        "collectives_not_counted": list(NOT_COUNTED) + ([note] if note
-                                                        else []),
+        "collectives_not_counted": [] if split else (
+            list(NOT_COUNTED) + ([note] if note else [])),
         "kernel_calls": counts["kernels"],
+        "dense_split": split_d,
+        "collectives_by_axis": None if not split else {
+            axis: collective_bytes_from_records(
+                [r for r in records if r.axis == axis], default_group=chips)
+            for axis in mesh.mesh_dim_names},
     }
 
 

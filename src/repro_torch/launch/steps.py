@@ -25,8 +25,12 @@ from repro_torch.nn.model import (chunk_prefill, decode_step, init_cache,
 from repro_torch.nn.transformer import layer_kind, stack_plan
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedules import cosine, wsd
+from repro_torch.parallel.collectives import all_reduce_
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
-                                           axis_size, make_spec)
+                                           axis_size, batch_block,
+                                           current_mesh, flat_shardings,
+                                           local_shape, make_spec,
+                                           split_axes, splitting, use_ctx)
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -39,7 +43,20 @@ def make_train_step(cfg: ModelConfig, peak_lr: float = 3e-4,
     takes the loss's gradient in every param leaf (autograd through
     `lm_loss`, each block rematerialized) and applies AdamW in place;
     metrics hold loss, lr, ce, aux, tokens and grad_norm as 0-d
-    tensors."""
+    tensors.
+
+    Under an installed mesh a config that `split_shardings` splits takes
+    the split path: `params` and `opt_state` are this rank's blocks
+    (`parallel.sharding.place` under `split_shardings`), `batch` the
+    global batch, of which the step takes this rank's block of the batch
+    axes.  The step installs the path (`parallel.sharding.splitting`) for
+    the loss, its gradient and AdamW, which read it through
+    `parallel.sharding.split_mesh`.  The gathers' backward reduce-scatters
+    each split leaf's gradient over the axes it is split over; each
+    gradient is then all-reduced over the mesh axes its leaf is not split
+    over (a norm scale over every axis, a matrix over `pod`), which makes
+    it the one-process gradient's block, and AdamW updates the blocks
+    with the global norm."""
     if cfg.name.startswith("minicpm"):
         sched = functools.partial(wsd, peak_lr=peak_lr, warmup=warmup,
                                   stable=int(total * 0.8),
@@ -47,9 +64,32 @@ def make_train_step(cfg: ModelConfig, peak_lr: float = 3e-4,
     else:
         sched = functools.partial(cosine, peak_lr=peak_lr, warmup=warmup,
                                   total=total)
+    whole = []          # the whole leaves' shapes, read once on the split path
 
     def train_step(params, opt_state: AdamWState, batch, step):
+        ctx = current_mesh()
+        shardings = (split_shardings(cfg, ctx.mesh) if ctx is not None
+                     else None)
         leaves = tree_flatten(params)
+        split = None
+        if shardings is not None:
+            shardings = flat_shardings(shardings["params"])
+            if not whole:
+                whole.extend(t.shape for t in
+                             tree_flatten(abstract_params(cfg)))
+            for t, w, sh in zip(leaves, whole, shardings, strict=True):
+                if tuple(t.shape) != local_shape(w, sh):
+                    raise ValueError(
+                        f"a leaf of {tuple(t.shape)} is not this rank's "
+                        f"block of {tuple(w)} under {sh.spec}: place the "
+                        f"params first (parallel.sharding.place)")
+            batch = batch_block(batch, ctx)
+            ctx = split = splitting(ctx, [split_axes(sh) for sh in shardings])
+        with use_ctx(ctx):
+            return _train_update(params, leaves, opt_state, batch,
+                                 sched(step), split)
+
+    def _train_update(params, leaves, opt_state, batch, lr, split):
         for t in leaves:
             t.requires_grad_(True)
         try:
@@ -59,10 +99,14 @@ def make_train_step(cfg: ModelConfig, peak_lr: float = 3e-4,
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        grads = tree_unflatten(params, [
-            torch.zeros_like(t) if g is None else g
-            for t, g in zip(leaves, grads)])
-        lr = sched(step)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
+        if split is not None:
+            for g, split_on in zip(grads, split.leaf_axes):
+                for name in split.axis_names:
+                    if name not in split_on:
+                        all_reduce_(g, split.group(name), axis=name)
+        grads = tree_unflatten(params, grads)
         new_params, new_opt, om = adamw_update(params, grads, opt_state, lr)
         out = {"loss": loss.detach(), "lr": lr,
                **{k: v.detach() for k, v in metrics.items()}, **om}
@@ -252,6 +296,19 @@ def _is_spec_leaf(x) -> bool:
 def param_shardings(cfg: ModelConfig, mesh):
     return tree_map(lambda s: NamedSharding(mesh, make_spec(*s)),
                     param_specs(cfg), is_leaf=_is_spec_leaf)
+
+
+def split_shardings(cfg: ModelConfig, mesh):
+    """{"params", "opt"}: the shardings `make_train_step` takes its state
+    in under `mesh` when it splits `cfg`'s layers over it, else None.
+    The one place that picks the dense split path: the dense GQA families
+    (gemma-7b, minicpm-2b, qwen3-32b, yi-34b) split; every other family
+    keeps its dense layers whole on every rank.  `launch.train` places
+    its state and the dry run counts a split step by it."""
+    if not (cfg.family == "dense" and cfg.attn_type == "gqa"):
+        return None
+    psh = param_shardings(cfg, mesh)
+    return {"params": psh, "opt": opt_shardings(psh, mesh)}
 
 
 def opt_shardings(param_sh, mesh):

@@ -19,7 +19,11 @@ runs under `--mesh`'s mesh (`parallel.sharding.use_mesh`): `none`, or
 `debug`, a 1 x 1 (data, model) mesh on one rank (a one-rank NCCL group
 on the card, gloo with `--device cpu`), whose MoE layers take the
 reference's expert-parallel bodies (capacity dispatch and all-to-all);
-`pod` and `multipod` need 256 and 512 ranks and raise on fewer.
+`pod` and `multipod` need 256 and 512 ranks and raise on fewer.  Under a
+mesh a dense GQA family trains on the split path
+(`launch.steps.split_shardings`): after `init_params` the params and
+moments are placed into this rank's blocks, a restore places its leaves
+the same way, and a checkpoint gathers them whole (rank 0 writes).
 """
 from __future__ import annotations
 
@@ -38,10 +42,10 @@ from repro_torch.ft import StepTimer, Watchdog
 # whose package imports the engine, which imports the steps
 import repro_torch.serving  # noqa: F401
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_train_step, split_shardings
 from repro_torch.nn.model import init_params
 from repro_torch.optim.adamw import adamw_init
-from repro_torch.parallel.sharding import use_mesh
+from repro_torch.parallel.sharding import current_mesh, place, use_mesh
 from repro_torch.tree import tree_map
 
 
@@ -101,13 +105,18 @@ def _train(args, dev) -> None:
     data = DataConfig(seq_len=args.seq, global_batch=args.batch)
 
     params = cast_for_training(init_params(cfg, seed=0, device=dev))
+    ctx = current_mesh()
+    shardings = split_shardings(cfg, ctx.mesh) if ctx is not None else None
+    if shardings is not None:
+        params = place(params, shardings["params"])
     opt_state = adamw_init(params)
     start = 0
     if args.ckpt_dir:
         last = latest_step(args.ckpt_dir)
         if last is not None:
             state = restore_checkpoint(args.ckpt_dir, last,
-                                       {"params": params, "opt": opt_state})
+                                       {"params": params, "opt": opt_state},
+                                       shardings)
             params, opt_state = state["params"], state["opt"]
             start = last
             print(f"resumed from step {last}")
@@ -119,7 +128,8 @@ def _train(args, dev) -> None:
         if args.ckpt_dir:
             print(f"WATCHDOG: step {step} hung; emergency checkpoint")
             save_checkpoint(args.ckpt_dir, step,
-                            {"params": params, "opt": opt_state})
+                            {"params": params, "opt": opt_state},
+                            shardings=shardings)
 
     wd = Watchdog(args.watchdog_s, on_timeout=emergency)
 
@@ -141,11 +151,12 @@ def _train(args, dev) -> None:
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             save_checkpoint(args.ckpt_dir, step + 1,
                             {"params": params, "opt": opt_state},
-                            block=False)
+                            block=False, shardings=shardings)
     if args.ckpt_dir:
         wait_for_saves()
         save_checkpoint(args.ckpt_dir, args.steps,
-                        {"params": params, "opt": opt_state})
+                        {"params": params, "opt": opt_state},
+                        shardings=shardings)
     print("done")
 
 

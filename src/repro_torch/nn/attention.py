@@ -56,6 +56,8 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.flash import flash_attention_train
 from repro_torch.nn.layers import apply_rope, rmsnorm, rope_angles
+from repro_torch.parallel.collectives import all_gather, reduce_scatter
+from repro_torch.parallel.sharding import split_mesh
 
 Params = Dict[str, Any]
 
@@ -225,9 +227,12 @@ def attention_specs(cfg: ModelConfig) -> Params:
     return s
 
 
-def _gqa_qkv(params, x, cfg: ModelConfig, positions):
+def _gqa_qkv(params, x, cfg: ModelConfig, positions, heads=None):
+    """q (B, S, Hkv, G, D), k and v (B, S, Hkv, D) of `heads` = (H, Hkv)
+    query and KV heads (the config's by default; a split rank's own)."""
     B, S, _ = x.shape
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, Hkv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    D = cfg.head_dim
     q = torch.matmul(x, params["w_q"].to(x.dtype))
     k = torch.matmul(x, params["w_k"].to(x.dtype))
     v = torch.matmul(x, params["w_v"].to(x.dtype))
@@ -241,6 +246,59 @@ def _gqa_qkv(params, x, cfg: ModelConfig, positions):
     qf = apply_rope(q.reshape(B, S, H, D), cos, sin)
     k = apply_rope(k, cos, sin)
     return qf.reshape(B, S, Hkv, H // Hkv, D), k, v
+
+
+def head_plan(H: int, Hkv: int, model: int, rank: int):
+    """How model rank `rank` of `model` splits attention's heads: None
+    when the H query heads do not divide over `model` (every model rank
+    computes every head on the whole sequence and keeps its sequence
+    block: the attention weights' `model` blocks are gathered), else
+    (first query head, heads, the KV head each of them reads).  A rank
+    holds whole query heads and the KV heads they read, repeated where
+    `model` > Hkv."""
+    if H % model:
+        return None
+    Hl = H // model
+    q0 = rank * Hl
+    return q0, Hl, [(q0 + i) // (H // Hkv) for i in range(Hl)]
+
+
+def _split_weights(params, cfg: ModelConfig, ctx):
+    """The split attention's weights on this rank: (a params dict with
+    gathered matrices, (H, Hkv) of the heads it computes, whether it
+    computes every head)."""
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m = ctx.size("model")
+    plan = head_plan(H, Hkv, m, ctx.index("model"))
+
+    def data(w, dim):
+        return all_gather(w.to(torch.bfloat16), ctx, "data", dim)
+
+    def whole(w, model_dim, data_dim):
+        return all_gather(data(w, data_dim), ctx, "model", model_dim)
+
+    w = {k: v for k, v in params.items() if k.endswith("_norm")}
+    if plan is None:
+        w.update(w_q=whole(params["w_q"], 1, 0), w_k=whole(params["w_k"], 1, 0),
+                 w_v=whole(params["w_v"], 1, 0), w_o=whole(params["w_o"], 0, 1))
+        return w, (H, Hkv), True
+    _, Hl, kv = plan
+    w.update(w_q=data(params["w_q"], 0), w_o=data(params["w_o"], 1))
+    if Hkv % m == 0:                    # this rank's KV block is what it reads
+        w.update(w_k=data(params["w_k"], 0), w_v=data(params["w_v"], 0))
+        return w, (Hl, Hkv // m), False
+    heads = sorted(set(kv))
+    n = len(heads)
+    grouped = Hl % n == 0 and kv == [heads[i // (Hl // n)]
+                                     for i in range(Hl)]
+    for name in ("w_k", "w_v"):
+        full = whole(params[name], 1, 0)
+        if grouped:                     # whole groups of query heads
+            w[name] = full.narrow(1, heads[0] * D, n * D)
+        else:                           # one KV head per query head
+            cols = torch.tensor([h * D + d for h in kv for d in range(D)])
+            w[name] = full.index_select(1, cols.to(full.device))
+    return w, (Hl, n if grouped else Hl), False
 
 
 def attention(
@@ -267,6 +325,13 @@ def attention(
     if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attn_type {cfg.attn_type!r} is not ported yet")
+    split = (split_mesh() if cache is None and not make_cache
+             and cache_pos is None else None)
+    if split is not None:
+        # this rank's (B_l, S / model, d) block -> the whole sequence
+        S_block = x.shape[1]
+        x = all_gather(x, split, "model", 1)
+        params, heads, every_head = _split_weights(params, cfg, split)
     B, S, _ = x.shape
     dev = x.device
     decode = torch.is_tensor(cache_pos)
@@ -286,8 +351,10 @@ def attention(
                               make_cache=make_cache, cache_len=cache_len,
                               page_table=page_table)
 
-    q, k, v = _gqa_qkv(params, x, cfg, positions)
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _gqa_qkv(params, x, cfg, positions,
+                       heads if split is not None else None)
+    H, Hkv = q.shape[2] * q.shape[3], q.shape[2]
+    D = cfg.head_dim
     new_cache = None
 
     if cache is not None and page_table is None and decode:
@@ -350,8 +417,13 @@ def attention(
         if make_cache:
             new_cache = _make_cache(k, v, cfg, layer_window, cache_len or S)
 
-    o = o.to(x.dtype).reshape(B, S, cfg.q_dim)
+    o = o.to(x.dtype).reshape(B, S, H * D)
+    if split is not None and every_head:
+        # every model rank computed every head: keep its sequence block
+        o = o.narrow(1, split.index("model") * S_block, S_block)
     y = torch.matmul(o, params["w_o"].to(x.dtype))
+    if split is not None and not every_head:
+        y = reduce_scatter(y, split, "model", 1)
     return y, new_cache
 
 

@@ -4,7 +4,19 @@
 Cast points follow the reference exactly: RMSNorm and RoPE run in f32 and
 cast back to the activation dtype; the embedding gathers bf16 rows; every
 matrix product runs in the activation dtype (the reference casts each
-weight to it first, so storing matrices in bf16 changes no value).
+weight to it first, so storing matrices in bf16 changes no value).  The
+table's gradient sums each row's occurrences in f32 and rounds the row
+once (`_Lookup`).
+
+On the dense split path (`parallel.sharding.split_mesh`) `embed` and `mlp`
+take this rank's blocks: `embed` looks its batch block's tokens up in its
+rows of the table (vocab over `model`, the d columns gathered over
+`data`) and reduce-scatters the rows over `model` into its sequence
+block; `mlp` gathers its sequence block over `model`, runs its columns of
+`w_up`/`w_gate` and rows of `w_down` (gathered over `data`) and
+reduce-scatters the partial sums back into the sequence block.
+`vocab_block` gives the table or head block the split loss unembeds
+with.
 """
 from __future__ import annotations
 
@@ -14,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.nn.config import ModelConfig
+from repro_torch.parallel.collectives import all_gather, reduce_scatter
+from repro_torch.parallel.sharding import split_mesh
 
 Params = Dict[str, Any]
 # a spec tree: the param tree with, in place of each leaf, a tuple of
@@ -48,8 +62,53 @@ def mlp_specs(gated: bool) -> Specs:
     return s
 
 
+class _Lookup(torch.autograd.Function):
+    """`table[ids]`; backward, each row's gradients summed in f32 and
+    rounded once to the table's dtype.  Indexing's own backward adds each
+    occurrence into the bf16 row and rounds each time, so a row stops
+    growing once its sum is ~256 times an occurrence's: a Zipfian batch of
+    8,192 tokens holds one token 2,057 times, and the tied table's
+    gradient then depends on how the batch is blocked."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        acc = grad.new_zeros(ctx.rows, dtype=torch.float32)
+        acc.index_put_((ids.reshape(-1).long(),),
+                       grad.reshape(-1, ctx.rows[-1]).float(),
+                       accumulate=True)
+        return acc.to(grad.dtype), None
+
+
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["table"].to(torch.bfloat16)[tokens]
+    ctx = split_mesh()
+    if ctx is None:
+        return _Lookup.apply(params["table"].to(torch.bfloat16), tokens)
+    # tokens (B_l, S) -> this rank's (B_l, S / model, d) block
+    table = all_gather(params["table"].to(torch.bfloat16), ctx, "data", 1)
+    rows = table.shape[0]
+    local = tokens - ctx.index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    x = _Lookup.apply(table, torch.where(inside, local,
+                                         torch.zeros_like(local)))
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return reduce_scatter(x, ctx, "model", 1)
+
+
+def vocab_block(params: Params, ctx) -> torch.Tensor:
+    """The split path's (d, vocab / model) unembedding block: the head's
+    columns or the tied table's rows, gathered over `data`."""
+    head = params.get("head")
+    if head is not None:
+        return all_gather(head.to(torch.bfloat16), ctx, "data", 0)
+    return all_gather(params["table"].to(torch.bfloat16), ctx, "data",
+                      1).t()
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -113,11 +172,19 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """x: (..., d) -> (..., d); GeGLU/SwiGLU when `w_gate` is present."""
-    h = torch.matmul(x, params["w_up"].to(x.dtype))
-    if "w_gate" in params:
-        g = torch.matmul(x, params["w_gate"].to(x.dtype))
+    """x: (..., d) -> (..., d); GeGLU/SwiGLU when `w_gate` is present.  On
+    the split path x and the result are (B_l, S / model, d) blocks."""
+    ctx = split_mesh()
+    w = {k: v.to(x.dtype) for k, v in params.items()}
+    if ctx is not None:
+        x = all_gather(x, ctx, "model", 1)
+        w = {k: all_gather(v, ctx, "data", 1 if k == "w_down" else 0)
+             for k, v in w.items()}
+    h = torch.matmul(x, w["w_up"])
+    if "w_gate" in w:
+        g = torch.matmul(x, w["w_gate"])
         h = _act(g, act) * h
     else:
         h = _act(h, act)
-    return torch.matmul(h, params["w_down"].to(x.dtype))
+    y = torch.matmul(h, w["w_down"])
+    return y if ctx is None else reduce_scatter(y, ctx, "model", 1)

@@ -24,12 +24,16 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import (embed, embedding_specs, rmsnorm,
-                                   rmsnorm_specs, unembed)
+                                   rmsnorm_specs, unembed, vocab_block)
 from repro_torch.nn.moe import init_moe
 from repro_torch.nn.ssm import (init_mamba_cache, init_mlstm_cache,
                                 init_slstm_cache)
 from repro_torch.nn.transformer import (apply_stack, layer_kind, stack_plan,
                                         stack_specs)
+from repro_torch.parallel.collectives import (all_gather, all_reduce,
+                                              all_reduce_, all_reduce_max,
+                                              psum)
+from repro_torch.parallel.sharding import split_mesh
 
 Params = Dict[str, Any]
 
@@ -195,7 +199,8 @@ def _inputs_to_x(params: Params, batch: Dict[str, torch.Tensor],
     """The model's input stream from a batch dict: (x, prefix_len).  An
     embeddings model takes `embeds` cast to bf16; a prefix-VLM batch that
     carries `patch_embeds` puts them, cast to the token dtype, before the
-    token embeddings (prefix_len = P); anything else embeds `tokens`."""
+    token embeddings (prefix_len = P); anything else embeds `tokens` (on
+    the split path, this rank's (B_l, S / model, d) sequence block)."""
     if cfg.input_mode == "embeddings":
         return batch["embeds"].to(torch.bfloat16), 0
     if cfg.input_mode == "prefix_vlm" and "patch_embeds" in batch:
@@ -232,7 +237,11 @@ def _chunked_ce(params: Params, x: torch.Tensor, targets: torch.Tensor,
     Each chunk's bf16 logits are cast to f32, the padded vocab masked to
     -1e30, and the target's logit picked by a masked sum (the reference's
     vocab-sharding-friendly pick).  x (B, S, d) bf16, targets (B, S) int,
-    loss_mask (B, S) f32 -> (mean CE, count of counted positions), f32."""
+    loss_mask (B, S) f32 -> (mean CE, count of counted positions), f32.
+    On the split path (`_split_ce`) x is the rank's batch block."""
+    ctx = split_mesh()
+    if ctx is not None:
+        return _split_ce(params, x, targets, loss_mask, cfg, ctx, chunk)
     S = x.shape[1]
     dev = x.device
     vocab_iota = torch.arange(cfg.vocab_padded, device=dev)
@@ -252,16 +261,69 @@ def _chunked_ce(params: Params, x: torch.Tensor, targets: torch.Tensor,
     return tot / torch.clamp_min(cnt, 1.0), cnt
 
 
+def _split_ce(params, x, targets, loss_mask, cfg: ModelConfig, ctx,
+              chunk: int):
+    """`_chunked_ce` on a split rank: x (B_l, S, d) its batch block over
+    the whole sequence, its logits its vocab block.  The row max, the sum
+    of exponentials and the target's logit are reduced over `model` (the
+    reduction the reference's one-hot pick leaves GSPMD); the rank counts
+    the positions of its own sequence block, and the loss is the sum of
+    the ranks' shares over the count of the whole batch, on every rank."""
+    B, S = targets.shape
+    dev = x.device
+    table = vocab_block(params["embedding"], ctx)            # (d, V / m)
+    rows = table.shape[1]
+    vocab_iota = ctx.index("model") * rows + torch.arange(rows, device=dev)
+    vocab_ok = vocab_iota < cfg.vocab
+    # the sequence block of the rank's residual stream: (S + 1) / model
+    blk = (S + 1) // ctx.size("model")
+    pos = torch.arange(S, device=dev)
+    own = ((pos >= ctx.index("model") * blk)
+           & (pos < (ctx.index("model") + 1) * blk)).float()
+    tot = torch.zeros((), device=dev)
+    cnt = torch.zeros((), device=dev)
+    for s0 in range(0, S, chunk):
+        xb, tb = x[:, s0:s0 + chunk], targets[:, s0:s0 + chunk]
+        mb = loss_mask[:, s0:s0 + chunk]
+        logits = torch.matmul(xb, table).float()
+        logits = torch.where(vocab_ok, logits, torch.full_like(logits, -1e30))
+        mx = all_reduce_max(torch.amax(logits, dim=-1), ctx, "model")
+        se = all_reduce(torch.sum(torch.exp(logits - mx[..., None]), dim=-1),
+                        ctx, "model")
+        lse = mx + torch.log(se)
+        picked = all_reduce(torch.sum(torch.where(
+            vocab_iota == tb[..., None], logits, torch.zeros_like(logits)),
+            dim=-1), ctx, "model")
+        tot = tot + torch.sum((lse - picked) * mb * own[s0:s0 + chunk])
+        cnt = cnt + torch.sum(mb)
+    batch = ("pod", "data") if ctx.has_pod else ("data",)
+    cnt = cnt.detach()
+    for name in batch:
+        all_reduce_(cnt, ctx.group(name), axis=name)
+    tot = psum(tot, ctx, ctx.axis_names)
+    return tot / torch.clamp_min(cnt, 1.0), cnt
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's training loss: (loss, {"ce", "aux", "tokens"}), loss
     = ce + router_aux_weight · aux.  Token models predict each next token
     (a prefix VLM over its text positions only); an encoder predicts
     `targets` where `loss_mask` counts.  Differentiable in `params`; with
-    `cfg.remat` every block is rematerialized in the backward pass."""
+    `cfg.remat` every block is rematerialized in the backward pass.
+
+    On the dense split path (`parallel.sharding.split_mesh`, which
+    `launch.steps.make_train_step` installs) `params` are this rank's
+    blocks, `batch` its block of the batch axes, the residual stream its
+    sequence block until the final norm, after which the sequence is
+    gathered over `model`; the loss and its metrics are the whole batch's
+    on every rank."""
+    split = split_mesh()
     x, prefix_len = _inputs_to_x(params, batch, cfg)
     x, _, aux = apply_stack(params["stack"], x, cfg, prefix_len=prefix_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps).to(torch.bfloat16)
+    if split is not None:
+        x = all_gather(x, split, "model", 1)
     if cfg.is_encoder:
         targets = batch["targets"]
         mask = batch.get("loss_mask")

@@ -39,32 +39,33 @@ aux loss is what the reference's `out_specs P()` hands back: the value of
 the rank at mesh coordinate 0 (on the replicated path after its mean over
 `model`), which every rank receives.
 
-Gradients: the port's dense layers hold whole tensors and compute the same
-loss on every rank, so every rank's gradient of a dense leaf is already
-the one-process gradient.  `moe` keeps that: its input and its parameters
-enter through `_Replicated`, whose backward sums the rank's share over
-the whole mesh, so every rank ends with the one-process gradient of `x`
-and of every MoE leaf, and a training step applies each rank's gradients
-as they are, with no reduction of its own.
+Gradients: MoE families run under a mesh with their dense layers whole
+on every rank (the dense split, `launch.steps.split_shardings`, takes
+the dense GQA families only), and every rank computes the same loss, so
+every rank's gradient of a dense leaf is already the one-process
+gradient.  `moe` keeps that: its input and its parameters enter through
+`_Replicated`, whose backward sums the rank's share over the whole mesh,
+so every rank ends with the one-process gradient of `x` and of every MoE
+leaf, and a training step applies each rank's gradients as they are,
+with no reduction of its own.
 
-`recording_collectives()` makes the mesh bodies' collectives leave a
-(kind, result bytes, group size) record each, in this thread, for the dry
-run's collective term (`repro_torch.launch.dryrun`): the exchanges and
-gathers of `_exchange` / `_gather`, forward and backward, and `_Psum`'s
-all-reduce.  With no recorder open the bodies record nothing.
+The collectives are `repro_torch.parallel.collectives`' Functions; under
+its `recording_collectives()` they leave a record each for the dry run's
+collective term (`repro_torch.launch.dryrun`): the exchanges and gathers,
+forward and backward, and `_Psum`'s all-reduce.
 """
 from __future__ import annotations
 
-import contextlib
 import math
-import threading
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import _act, mlp, mlp_specs
+from repro_torch.parallel.collectives import (  # noqa: F401
+    _AllToAll, _GatherBlocks, _Owned, _Psum, _Replicated, all_gather,
+    recording_collectives)
 from repro_torch.parallel.sharding import MeshCtx, batch_axes, current_mesh
 
 Params = Dict[str, Any]
@@ -206,157 +207,11 @@ def _pack_dispatch(xf, gate_vals, gate_idx, n_experts: int, capacity: int):
             torch.where(keep, flat_gate, torch.zeros_like(flat_gate)))
 
 
-_RECORDER = threading.local()
-
-
-@contextlib.contextmanager
-def recording_collectives():
-    """For the body of the `with`, in this thread: a list that every
-    collective of the mesh bodies appends (kind, result bytes, group size)
-    to, in `repro_torch.roofline.analysis`'s kind names."""
-    prev = getattr(_RECORDER, "records", None)
-    _RECORDER.records = records = []
-    try:
-        yield records
-    finally:
-        _RECORDER.records = prev
-
-
-def _record(kind: str, result: torch.Tensor, group) -> None:
-    records = getattr(_RECORDER, "records", None)
-    if records is not None:
-        records.append((kind, result.numel() * result.element_size(),
-                        dist.get_world_size(group)))
-
-
-# The collectives as autograd Functions over `torch.distributed` calls that
-# gloo and NCCL both run, so a training step differentiates through them.
-# Every rank computes the same loss from the global output, and each
-# rank's backward through the body gives its own share of the gradient:
-# an output gathered for every rank hands back the rank's own slice, a sum
-# for every rank passes its gradient through, an all-to-all runs in
-# reverse, and weights gathered over 'data' (used by each rank's own
-# tokens) reduce-scatter their gradients.  Every part of the output is
-# computed on one rank only (the shared experts too), so the shares of
-# all ranks add up to the one-process gradient, and `_Replicated` adds
-# them at the layer's inputs.
-def _exchange(t: torch.Tensor, group) -> torch.Tensor:
-    """Slice i of `t`'s leading axis goes to rank i of the group; slice i
-    of the result came from rank i."""
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
-    _record("all-to-all", out, group)
-    return out
-
-
-def _gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
-    _record("all-gather", out, group)
-    return out
-
-
-class _Replicated(torch.autograd.Function):
-    """A tensor every rank of the mesh holds whole: the identity forward;
-    backward, the ranks' gradient shares summed over every mesh axis, so
-    each rank receives the one-process gradient."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, grad):
-        out = grad.clone(memory_format=torch.contiguous_format)
-        for name in ctx.mesh.axis_names:
-            dist.all_reduce(out, group=ctx.mesh.group(name))
-        return out, None
-
-
-class _Owned(torch.autograd.Function):
-    """The identity; backward, the gradient on the rank that owns the
-    value and zeros on the others (the graph stays the same on every
-    rank, so every rank runs the same collectives in the same order)."""
-
-    @staticmethod
-    def forward(ctx, t, owner):
-        ctx.owner = owner
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (grad if ctx.owner else torch.zeros_like(grad)), None
-
-
-class _GatherShards(torch.autograd.Function):
-    """`lax.all_gather(..., tiled=True)` of FSDP weight shards: the group's
-    shards concatenated along `axis` in rank order; gradients
-    reduce-scattered."""
-
-    @staticmethod
-    def forward(ctx, t, group, axis):
-        ctx.group, ctx.axis = group, axis
-        return _gather(t, group, axis)
-
-    @staticmethod
-    def backward(ctx, grad):
-        n = dist.get_world_size(ctx.group)
-        shards = torch.stack(grad.chunk(n, dim=ctx.axis))
-        return _exchange(shards, ctx.group).sum(0), None, None
-
-
-class _GatherBlocks(torch.autograd.Function):
-    """Output blocks gathered along `axis` for every rank."""
-
-    @staticmethod
-    def forward(ctx, t, group, axis):
-        ctx.group, ctx.axis = group, axis
-        return _gather(t, group, axis)
-
-    @staticmethod
-    def backward(ctx, grad):
-        n = dist.get_world_size(ctx.group)
-        own = grad.chunk(n, dim=ctx.axis)[dist.get_rank(ctx.group)]
-        return own.contiguous(), None, None
-
-
-class _AllToAll(torch.autograd.Function):
-    """`lax.all_to_all(split_axis=0, concat_axis=0)` over the group."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return _exchange(t, group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _exchange(grad, ctx.group), None
-
-
-class _Psum(torch.autograd.Function):
-    """`lax.psum` over the group, its result used on every rank."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        _record("all-reduce", out, group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def _gathered_weights(w_gate, w_up, w_down, ctx: MeshCtx):
     """FSDP: the weights arrive split over `data` on D (or F); gather."""
-    data = ctx.group("data")
-    return (_GatherShards.apply(w_gate, data, 1),
-            _GatherShards.apply(w_up, data, 1),
-            _GatherShards.apply(w_down, data, 2))
+    return (all_gather(w_gate, ctx, "data", 1),
+            all_gather(w_up, ctx, "data", 1),
+            all_gather(w_down, ctx, "data", 2))
 
 
 def _moe_body_a2a(xb, router, w_gate, w_up, w_down, cfg: ModelConfig,

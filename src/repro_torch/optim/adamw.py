@@ -8,6 +8,14 @@ order.  The update runs under `torch.no_grad`, in place on the given
 parameter and moment tensors; a large leaf is updated in slices along
 its first axis, which bounds the f32 scratch and computes the same
 values.
+
+On the dense split path (`parallel.sharding.split_mesh`, which the
+training step installs) each rank holds blocks of the params, gradients
+and moments and updates its blocks; the global norm is then the square
+root of the sum of squares over every block, each leaf counted once: the
+leaves split over the same mesh axes (the installed mesh's `leaf_axes`)
+are summed together and all-reduced over those axes (a leaf is whole,
+and equal, on the ranks along every other axis).
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.parallel.collectives import all_reduce_
+from repro_torch.parallel.sharding import split_mesh
 from repro_torch.tree import tree_flatten, tree_map
 
 # elements of one f32 scratch slice (256 MB)
@@ -61,10 +71,25 @@ def adamw_update(params: Any, grads: Any, state: AdamWState, lr, *,
     flat_v = tree_flatten(state.nu)
     dev = flat_p[0].device
     step = state.step + 1
-    gnorm = torch.zeros((), device=dev)
-    for g in flat_g:                     # the reference's sum, leaf order
-        gnorm = gnorm + sum(torch.sum(torch.square(g[s].float()))
-                            for s in _slices(g))
+
+    def sq(g):
+        return sum(torch.sum(torch.square(g[s].float())) for s in _slices(g))
+    mesh = split_mesh()
+    if mesh is None:
+        gnorm = torch.zeros((), device=dev)
+        for g in flat_g:                 # the reference's sum, leaf order
+            gnorm = gnorm + sq(g)
+    else:
+        groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for g, axes in zip(flat_g, mesh.leaf_axes, strict=True):
+            groups[axes] = groups.get(axes, torch.zeros((), device=dev)) \
+                + sq(g)
+        gnorm = torch.zeros((), device=dev)
+        for axes in sorted(groups):
+            part = groups[axes]
+            for name in axes:
+                all_reduce_(part, mesh.group(name), axis=name)
+            gnorm = gnorm + part
     gnorm = torch.sqrt(gnorm)
     # a tensor divided by a tensor: torch takes `scalar / tensor` as a
     # reciprocal times the scalar, which rounds apart from a quotient

@@ -15,6 +15,10 @@
     cell (one that raised too), a group that already exists refused,
     per-device param bytes from the PartitionSpec trees and the (16, 16)
     axis sizes; one MoE layer's collective records under the fake mesh;
+    a dense train cell counted as rank 0's split step: its FLOPs times
+    the chips against the whole step's, its sequence transitions over
+    `model` and FSDP gathers over `data` by pass, the heads gathered
+    where they do not divide;
   * the `meta` routes of the flash and paged wrappers: the plain
     versions' shapes and dtypes, their tallies by formula; the counting
     modes on a matmul, views and in-place ops;
@@ -40,6 +44,7 @@ from repro.configs import get_config as ref_config
 from repro.roofline import analysis as ref_analysis
 from repro.roofline import report as ref_report
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, make_batch_specs
 from repro_torch.kernels import counting
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -47,7 +52,8 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 from repro_torch.launch import dryrun
 from repro_torch.launch.shapes import SHAPES
-from repro_torch.launch.steps import _is_spec_leaf, abstract_params
+from repro_torch.launch.steps import (_is_spec_leaf, abstract_opt_state,
+                                      abstract_params, make_train_step)
 from repro_torch.nn.model import param_specs
 from repro_torch.roofline import analysis, report
 from repro_torch.tree import tree_leaves
@@ -298,12 +304,14 @@ def test_moe_records_under_the_fake_mesh():
                      for k in KINDS}
         assert all(g == 16 for _, _, g in records)
     # forward: 3 weight gathers, the output over model and over data, 2
-    # exchanges, the aux sums over both axes; backward: 5 exchanges
+    # exchanges, the aux sums over both axes; backward: 5 exchanges, of
+    # which the 3 weight gathers' are reduce-scatters (lax.all_gather's
+    # transpose)
     assert got["prefill_32k"] == {"all-gather": 5, "all-reduce": 2,
                                   "reduce-scatter": 0, "all-to-all": 2,
                                   "collective-permute": 0}
     assert got["train_4k"] == {"all-gather": 10, "all-reduce": 4,
-                               "reduce-scatter": 0, "all-to-all": 9,
+                               "reduce-scatter": 3, "all-to-all": 6,
                                "collective-permute": 0}
     # decode: replicated tokens, the partial sums and aux all-reduced
     assert got["decode_32k"]["all-to-all"] == 0
@@ -431,3 +439,68 @@ def test_cli_cell_and_report(tmp_path):
 def test_xla_flags_unchanged():
     assert os.environ.get("XLA_FLAGS") == XLA_FLAGS_AT_IMPORT
     assert not dist.is_initialized()
+
+
+# ------------------------------------------------------ the dense split
+def test_run_cell_split_train_counts_rank_zero(monkeypatch):
+    """A dense GQA train cell counts rank 0's split step on the (16, 16)
+    mesh: gemma-7b smoke with 16 query and KV heads, so every dim of the
+    step splits over the mesh.  Its FLOPs times the chips are the whole
+    step's within 2%; its collectives are the ones the step issues, by
+    mesh axis: over `model`, a sequence gather and a scatter around
+    attention and around the MLP, 4 a layer in the forward pass and 4 in
+    the backward (each one's transpose), 3 in the remat's recomputation
+    (it stops after the last tensor the backward needs, before the MLP's
+    scatter), and one of each for the embedding and the loss; over
+    `data`, the FSDP gathers of the 7 matrices a layer in the forward and
+    the recomputation and of the table twice (the embedding, the loss),
+    each with its gradient's reduce-scatter."""
+    cfg = dc.replace(get_config("gemma-7b", smoke=True), n_heads=16,
+                     n_kv_heads=16, head_dim=8)
+    monkeypatch.setattr(dryrun, "get_config", lambda arch, smoke=False: cfg)
+    cell = dryrun.run_cell("gemma-7b", "train_4k", multi_pod=False,
+                           smoke=True)
+    _check_cell(cell, "gemma-7b", "train_4k", False)
+    ap = abstract_params(cfg)
+    _, whole, _ = dryrun.count_step(
+        make_train_step(cfg), (ap, abstract_opt_state(ap),
+                               make_batch_specs(cfg, DataConfig(128, 16)), 1),
+        train=True)
+    assert abs(cell["probe"]["flops"] * 256 - whole["flops"]) \
+        <= 0.02 * whole["flops"]
+    assert cell["roofline"]["flops_per_device"] == cell["probe"]["flops"]
+    assert cell["collectives_not_counted"] == []
+    assert cell["dense_split"]["attention"] == "query heads split over model"
+    assert cell["dense_split"]["q_heads_per_rank"] == 1
+    L = cfg.n_layers
+    model, data = (cell["collectives_by_axis"][a] for a in ("model", "data"))
+    assert model["n_all-gather"] == (2 + 2 + 2) * L + 2
+    assert model["n_reduce-scatter"] == (2 + 1 + 2) * L + 2
+    assert model["n_all-gather"] + model["n_reduce-scatter"] \
+        == (4 + 3 + 4) * L + 4
+    assert data["n_all-gather"] == 2 * 7 * L + 2
+    assert data["n_reduce-scatter"] == 7 * L + 2
+    assert cell["kernel_calls"] == {"flash_attention": 2 * L}
+    assert sum(cell["collectives_by_axis"][a]["total"]
+               for a in ("data", "model")) == pytest.approx(
+        cell["roofline"]["collectives"]["total"])
+
+
+def test_run_cell_split_gathers_heads_that_do_not_divide():
+    """minicpm-2b smoke's 4 heads do not split over 16 model ranks: each
+    model rank computes every head (the attention weights gathered over
+    `model` too) and keeps its sequence block, so attention's FLOPs are
+    16 times its share and its output takes no scatter."""
+    cell = dryrun.run_cell("minicpm-2b", "train_4k", multi_pod=False,
+                           smoke=True)
+    split = cell["dense_split"]
+    assert split["q_heads_per_rank"] == 4 and split["model"] == 16
+    assert split["attention"].startswith("every head on each model rank")
+    L = get_config("minicpm-2b", smoke=True).n_layers
+    model = cell["collectives_by_axis"]["model"]
+    # a layer: the sequence gathers before attention and the MLP and the
+    # 4 attention weights' gathers, in the forward pass and again in the
+    # recomputation, the MLP's scatter (forward only: the recomputation
+    # stops before it); in the backward each one's transpose
+    assert model["n_all-gather"] == (6 + 6 + 1) * L + 2
+    assert model["n_reduce-scatter"] == (1 + 0 + 6) * L + 2

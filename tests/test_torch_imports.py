@@ -4,9 +4,10 @@ sources, its example arms (`examples/*_torch.py`) nor `chip_smoke.py` name
 them in an import.  `repro_torch.core` and `repro_torch.sim` import each
 other (the scheduler runs the simulator): either may be imported first.
 The mesh layer's modules (`parallel/`, `launch/{mesh,shapes}.py`) each
-import alone with the reference's names, and so do `launch.steps`, the dry
-run and the roofline package, none of them loading the fake process
-group."""
+import alone with the reference's names (the port's own collectives
+module with the names the model code takes from it), and so do
+`launch.steps`, the dry run and the roofline package, none of them
+loading the fake process group."""
 import os
 import pathlib
 import re
@@ -74,6 +75,10 @@ MESH_MODULES = {
     "repro_torch.parallel.sharding": ("_LOGICAL", "_resolve",
                                       "named_sharding", "NamedSharding",
                                       "PartitionSpec"),
+    "repro_torch.parallel.collectives": (
+        "all_gather", "reduce_scatter", "all_reduce", "all_reduce_max",
+        "psum", "recording_collectives", "_GatherBlocks", "_Psum",
+        "_Replicated"),
     "repro_torch.parallel.compression": (
         "BLOCK", "_quantize_blockwise", "_dequantize_blockwise",
         "compressed_psum_pod", "compression_ratio_bytes"),
