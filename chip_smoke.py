@@ -228,6 +228,7 @@ TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 LAYER_CODES = 276_824_064      # quantized weights of one gemma-7b layer
 KERNEL_TOL = 2e-2              # bf16 output: the reference's own tolerance
 F32_TOL = 3e-4                 # f32 output: the reference's own tolerance
+BF16_TOL = 2e-2                # a norm of bf16 gradients
 # f32 flash runs in split TF32 (three products per fragment), within ~4e-6
 # of full f32; one TF32 pass is ~1.6e-3 off at S 512 D 256.  So its checks
 # hold it ten times tighter than F32_TOL, where one pass fails.
@@ -2868,43 +2869,52 @@ def mla_decode_profile(torch, cfg, params, requests):
     return out
 
 
-def check_flash_mla(torch, S=512, seed=17):
-    """The flash wrapper at MLA's prefill shape (deepseek-v2-lite: B 1,
-    H = Hkv = 16, q/k D 192, v D 128 zero-padded to 192 as
+def check_flash_mla(torch, S=512, seed=17, B=1, lse=False):
+    """The flash wrapper at MLA's prefill shape (deepseek-v2-lite: H = Hkv
+    = 16, q/k D 192, v D 128 zero-padded to 192 as
     `nn.attention._mla_attention` pads it; the wrapper pads all three to
-    256): kernel vs plain within KERNEL_TOL, its time, the plain
-    version's, SDPA's on the unpadded inputs, and the bound of the
-    unpadded work (q, k, v read once, the D-128 output written once; the
-    causal pairs' q·k in D 192 and p·v in D 128)."""
+    256), with `lse` in its training mode (each row's log-sum-exp too, as
+    `nn.flash`'s Function launches it): kernel vs plain within KERNEL_TOL
+    (lse within LSE_TOL), its time, the plain version's, SDPA's forward on
+    the unpadded inputs, and the bound of the unpadded work (q, k, v read
+    once, the D-128 output, and lse, written once; the causal pairs' q·k
+    in D 192 and p·v in D 128)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     g = torch.Generator(device="cuda").manual_seed(seed)
     H, Dk, Dv = 16, 192, 128
-    q, k = (torch.randn(1, S, H, Dk, generator=g, device="cuda")
+    q, k = (torch.randn(B, S, H, Dk, generator=g, device="cuda")
             .to(torch.bfloat16) for _ in range(2))
-    v = torch.randn(1, S, H, Dv, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, S, H, Dv, generator=g, device="cuda").to(torch.bfloat16)
 
     def kernel():
-        return flash_attention(q, k, F.pad(v, (0, Dk - Dv)),
-                               causal=True)[..., :Dv]
+        out = flash_attention(q, k, F.pad(v, (0, Dk - Dv)), causal=True,
+                              return_lse=lse)
+        return (out[0][..., :Dv], out[1]) if lse else (out[..., :Dv], None)
 
     def plain():
-        return flash_attention_plain(q, k, F.pad(v, (0, Dk - Dv)),
-                                     causal=True)[..., :Dv]
-    out, ref = kernel(), plain()
+        out = flash_attention_plain(q, k, F.pad(v, (0, Dk - Dv)), True,
+                                    return_lse=lse)
+        return (out[0][..., :Dv], out[1]) if lse else (out[..., :Dv], None)
+    (out, out_lse), (ref, ref_lse) = kernel(), plain()
     err = (out.float() - ref.float()).abs().max().item()
-    if not (err <= KERNEL_TOL and torch.isfinite(out).all()):
-        raise AssertionError(f"flash_attention at MLA's shape disagrees: "
-                             f"{err} > {KERNEL_TOL}")
+    lse_err = (out_lse - ref_lse).abs().max().item() if lse else 0.0
+    if not (err <= KERNEL_TOL and lse_err <= LSE_TOL
+            and torch.isfinite(out).all()):
+        raise AssertionError(f"flash_attention at MLA's shape B{B} S{S} "
+                             f"(lse {lse}) disagrees: o {err} (limit "
+                             f"{KERNEL_TOL}), lse {lse_err} (limit "
+                             f"{LSE_TOL})")
     ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
     pairs = S * (S + 1) // 2
-    n_bytes = 2 * S * H * (2 * Dk + 2 * Dv)
-    n_flops = 2 * H * pairs * (Dk + Dv)
+    n_bytes = 2 * B * S * H * (2 * Dk + 2 * Dv) + (4 * B * S * H if lse
+                                                   else 0)
+    n_flops = 2 * B * H * pairs * (Dk + Dv)
     return err, ms, plain_ms, lib_ms, bound_ms(n_bytes, n_flops)
 
 
@@ -4454,8 +4464,120 @@ def split_vs_whole(torch, cfg, card):
     return launches, runs
 
 
+# phase 14b's MoE arm: deepseek-v2-lite-16b at full width cut to its dense
+# layer and 3 of its 26 MoE layers (~27 GB of params, gradients and
+# moments)
+MOE_TRAIN_ARCH = "deepseek-v2-lite-16b"
+MOE_TRAIN_LAYERS = 4
+
+
+def moe_split_vs_whole(torch, card):
+    """Phase 14b's MoE arm: deepseek-v2-lite-16b at full width (MLA, 64
+    experts top-6, 2 shared, vocab 102,400) cut to MOE_TRAIN_LAYERS
+    layers, one step at B 4 x S 2,048 through the split path (the params
+    and moments placed, the MoE layers' all-to-all body on the rank's
+    block of the stream, MLA split by heads) and one through the
+    whole-tensor mesh path (the same step with `split_shardings` giving
+    None: the whole params on the rank, the MoE layers' bodies on its
+    blocks of the whole tensors), both on one one-rank NCCL
+    debug mesh, in turns (split, whole, whole, split), each from a fresh
+    copy and fresh moments, freed before the next.  Both see the same
+    token block, so the same capacity and drops.  Fails unless loss and
+    ce are within F32_TOL and the grad norm within BF16_TOL of the whole
+    arm's, the tokens dropped in each MoE layer are equal, and each split
+    step launches the flash kernel 2 x layers times (forward and remat)
+    and nothing else."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_train_step, split_shardings
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import place, use_mesh
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    n_moe = sum(cfg.layer_is_moe)
+    params0, batch = train_params(torch, cfg), train_batch(torch, cfg)
+    step_fn = make_train_step(cfg, peak_lr=FALL_LR, warmup=1)
+    mesh = make_debug_mesh(1, 1)
+    runs = {"split": [], "whole": []}
+    launches = None
+    try:
+        with use_mesh(mesh):
+            psh = split_shardings(cfg, mesh)["params"]
+        for arm in ("split", "whole", "whole", "split"):
+            with use_mesh(mesh):
+                params = (place(params0, psh) if arm == "split"
+                          else tree_map(torch.clone, params0))
+                opt = adamw_init(params)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_launch_counts()
+                dispatches = []
+                whole = (mock.patch.object(steps, "split_shardings",
+                                           lambda cfg, mesh: None)
+                         if arm == "whole" else contextlib.nullcontext())
+                t0 = time.perf_counter()
+                with recording_dispatch(dispatches), whole:
+                    m = step_fn(params, opt, batch, 1)[2]
+                    metrics = {k: float(v) for k, v in m.items()}
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            # the forward pass's dispatches, one a MoE layer (the remat's
+            # recomputation repeats them)
+            dropped = [int((d["slot"] < 0).sum()) for d in dispatches[:n_moe]]
+            runs[arm].append({
+                **metrics, "wall_ms": wall, "dropped": dropped,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+            want = dict({n: 0 for n in counts},
+                        flash_attention=2 * cfg.n_layers)
+            if counts != want:
+                raise AssertionError(f"{arm} step launches {counts}, want "
+                                     f"{want}")
+            if arm == "split":
+                launches = launches or counts
+            del params, opt, m, dispatches
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    w, sp = runs["whole"][0], runs["split"][0]
+    for r in runs["split"] + runs["whole"]:
+        for k in ("loss", "ce", "grad_norm"):
+            tol = BF16_TOL if k == "grad_norm" else F32_TOL
+            if not (math.isfinite(r[k])
+                    and abs(r[k] - w[k]) <= tol * abs(w[k])):
+                raise AssertionError(f"MoE split vs whole {k}: {r[k]} vs "
+                                     f"{w[k]} (tolerance {tol})")
+        if r["dropped"] != w["dropped"]:
+            raise AssertionError(f"tokens dropped per MoE layer: "
+                                 f"{r['dropped']} vs {w['dropped']}")
+    walls = {arm: [f"{r['wall_ms']:.1f}" for r in rs]
+             for arm, rs in runs.items()}
+    log(f"{MOE_TRAIN_ARCH} (full width, {cfg.n_layers} layers: "
+        f"{cfg.n_layers - n_moe} dense + {n_moe} MoE) B{TRAIN_B} "
+        f"S{TRAIN_S} through the MoE split path vs the whole-tensor mesh "
+        f"path on a one-rank NCCL mesh ({card}): loss {sp['loss']:.6f} vs "
+        f"{w['loss']:.6f}, ce {sp['ce']:.6f} vs {w['ce']:.6f} (tolerance "
+        f"{F32_TOL} relative), grad norm {sp['grad_norm']:.6f} vs "
+        f"{w['grad_norm']:.6f} (tolerance {BF16_TOL}), aux {sp['aux']:.6f} "
+        f"vs {w['aux']:.6f}; tokens dropped per MoE layer {sp['dropped']} "
+        f"vs {w['dropped']} of {TRAIN_B * TRAIN_S * cfg.moe_topk} "
+        f"assignments; flash launches a step "
+        f"{launches['flash_attention']} (forward + remat); walls in turns "
+        f"(ms) split {walls['split']}, whole {walls['whole']}; peak memory "
+        f"split {sp['peak_gib']:.2f} GiB, whole {w['peak_gib']:.2f} GiB "
+        f"(the initial params' copy included)")
+    del params0, batch
+    return launches, runs
+
+
 def training(torch, card):
-    """Phase 14: training at minicpm-2b's full width."""
+    """Phase 14: training at minicpm-2b's full width, and phase 14b's MoE
+    arm at deepseek-v2-lite-16b's."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
@@ -4475,15 +4597,20 @@ def training(torch, card):
     split_launches, split = split_vs_whole(torch, cfg, card)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_launches, moe_split = moe_split_vs_whole(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     ckpt = smoke_resume(torch)
     secs = time.perf_counter() - t_phase
     log(f"phase 14 (training): {secs:.1f} s ({card})")
-    return ({"cli": launches, "split": split_launches},
+    return ({"cli": launches, "split": split_launches,
+             "moe_split": moe_launches},
             {"function": fn, "cli_walls_ms": cli_walls,
              "cli_peak_gib": peak / 2**30,
              "tokens_per_s": TRAIN_B * TRAIN_S / cli_walls[-1] * 1e3,
              "loss_falls": falls, "vs_plain": vs_plain,
-             "split_vs_whole": split, "smoke_checkpoint": ckpt,
+             "split_vs_whole": split, "moe_split_vs_whole": moe_split,
+             "smoke_checkpoint": ckpt,
              "seconds": secs})
 
 
@@ -4793,6 +4920,17 @@ def main() -> int:
         f"on the unpadded inputs {lib_ms:.4f} ms, kernel/sdpa "
         f"{ms / lib_ms:.2f}), bound of the unpadded work {b:.4f} ms by "
         f"{by}, kernel/bound {ms / b:.2f}")
+    # the MLA training route's shape: deepseek-v2-lite-16b at phase 14's
+    # B 4 x S 2,048, every head on one rank, the lse mode
+    mla_train = check_flash_mla(torch, S=TRAIN_S, seed=2048, B=TRAIN_B,
+                                lse=True)
+    err, ms, plain_ms, lib_ms, (b, by) = mla_train
+    log(f"flash_attention B{TRAIN_B} S{TRAIN_S} H16 D192 (MLA training "
+        f"shape, V 128 zero-padded, lse mode) causal: err {err:.3g}, "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa forward on the "
+        f"unpadded inputs {lib_ms:.4f} ms, kernel/sdpa {ms / lib_ms:.2f}), "
+        f"bound of the unpadded work {b:.4f} ms by {by}, kernel/bound "
+        f"{ms / b:.2f}")
     # f32: paged at F32_TOL, flash at FLASH_F32_TOL
     f32 = torch.float32
     paged32, errs32 = {}, {"paged": [], "flash": []}
@@ -5025,6 +5163,7 @@ def main() -> int:
     def training_fields(name):
         return {"training_launches": train_launches["cli"][name],
                 "split_step_launches": train_launches["split"][name],
+                "moe_split_step_launches": train_launches["moe_split"][name],
                 "dryrun_launches": {run: v[name]
                                     for run, v in dry_launches.items()}}
 
@@ -5081,7 +5220,15 @@ def main() -> int:
          **f32_fields(errs32["flash"], flash32[16], flash32[16][3]),
          "mla_max_abs_err": mla[0], "mla_ms": mla[1], "mla_plain_ms": mla[2],
          "mla_library_ms": mla[3], "mla_bound_ms": mla[4][0],
-         "mla_bound_by": mla[4][1], **family_fields("flash_attention"),
+         "mla_bound_by": mla[4][1],
+         "mla_training_shape": f"B{TRAIN_B} S{TRAIN_S} H16 D192 causal lse",
+         "mla_training_max_abs_err": mla_train[0],
+         "mla_training_ms": mla_train[1],
+         "mla_training_plain_ms": mla_train[2],
+         "mla_training_sdpa_fwd_ms": mla_train[3],
+         "mla_training_bound_ms": mla_train[4][0],
+         "mla_training_bound_by": mla_train[4][1],
+         **family_fields("flash_attention"),
          "mesh_launches": fam_mesh["flash_launches"],
          "hymba_max_abs_err": hymba[0], "hymba_ms": hymba[1],
          "hymba_plain_ms": hymba[2], "hymba_library_ms": hymba[3],

@@ -1,13 +1,14 @@
-"""The dense split training step over the cards of one machine, one NCCL
-rank a card, held against the one-card step (`chip_smoke.py` runs the
-split step on one rank only).
+"""The split training step over the cards of one machine, one NCCL rank
+a card, dense and MoE, held against one-card steps (`chip_smoke.py` runs
+the split step on one rank only).
 
-    python3 mesh_probe.py                 # every card
+    python3 mesh_probe.py                 # every card, every case
+    python3 mesh_probe.py --cases moe     # the MoE cases alone
     python3 mesh_probe.py --ranks 2
     python3 mesh_probe.py --ranks 1       # one card: (1, 1)
     python3 mesh_probe.py --cpu --ranks 4  # smoke configs, gloo, S 64
 
-Two cases, each with its params drawn from one seed on every rank (the
+The cases, each with its params drawn from one seed on every rank (the
 reference trainer's dtypes) and the same B 4 x S 2,048 batch:
 
   * minicpm-2b at full width (36 query heads, one KV head each), on the
@@ -16,41 +17,61 @@ reference trainer's dtypes) and the same B 4 x S 2,048 batch:
     (n/2, 2) and (1, n): under `model` 2 a rank's 3 query heads read two
     KV heads, each repeated on the ranks that read it; under `model` 4 the
     query heads do not divide, so every model rank computes every head
-    (`nn.attention.head_plan`).
+    (`nn.attention.head_plan`);
+  * deepseek-v2-lite-16b at full width cut to 4 layers (its dense layer
+    and 3 MoE layers), the capacity factor at ceil(n_experts / moe_topk)
+    so that no token drops on any block and the aux loss out of the loss
+    (a function of the origin rank's block, not of the batch), on (n/2,
+    2), (1, n) and (n, 1);
+  * deepseek-v2-lite-16b whole (27 layers: [dense, scan·26]) on the same
+    meshes, at its own capacity factor: no card holds its whole state
+    (~190 GB), so its params are drawn on the card, kept on the host and
+    each mesh's blocks cut there;
+  * qwen3-moe-235b-a22b at full width cut to 2 layers, on (n/2, 2) and
+    (1, n).
 
-Rank 0 first runs, alone on its card, the no-mesh step (twice, for its
-wall) and, for d 2 and 4, the no-mesh step computed in d batch blocks:
-each block's loss over d, its gradient taken alone, the d gradients
-summed in their dtype in block order (`blocks<d>`, as a (d, 1) mesh's
-reduce-scatters sum them, its FSDP gathers exact) or in f32, rounded
-once (`blocks<d>_f32`), then AdamW.  Their params and moments are kept
-on the host, and each blocked state is held against the whole step's by
-the measures below, with the leaves that part most named.  On one rank
-the meshes are (1, 1) alone.  Then every rank runs the split
-step (`launch.steps.make_train_step` under `use_mesh`, params and
-moments placed into the rank's blocks) on each mesh, each from a fresh
+For the dense cases rank 0 first runs, alone on its card, the no-mesh
+step (twice, for its wall) and, for d 2 and 4, the no-mesh step computed
+in d batch blocks: each block's loss over d, its gradient taken alone,
+the d gradients summed in their dtype in block order (`blocks<d>`, as a
+(d, 1) mesh's reduce-scatters sum them, its FSDP gathers exact) or in
+f32, rounded once (`blocks<d>_f32`), then AdamW.  Their params and
+moments are kept on the host, and each blocked state is held against the
+whole step's by the measures below, with the leaves that part most
+named.  For the 4-layer deepseek case rank 0 runs the no-mesh step and
+the one-card split step on a 1 x 1 mesh (twice each); the split step
+decides, as it runs the same expert-parallel MoE body (each expert's
+output rounded to bf16, a token's picks summed in pick order) on the
+whole batch, where the no-mesh MoE layer sums every expert in f32 in
+expert order, and with no drops each token's function is the body's on
+any mesh; the no-mesh step is reported beside it.  The whole deepseek
+and the qwen3-moe cases have no one-card step: their walls, peak memory,
+bytes held a card and losses are reported.  On one rank the meshes are
+(1, 1) alone.  Then every rank runs the split step
+(`launch.steps.make_train_step` under `use_mesh`, params and moments
+placed into the rank's blocks) on each mesh, each from a fresh
 placement, twice (the first one warms the collectives); after the second,
 the params and moments are gathered whole leaf by leaf and held against
-rank 0's no-mesh step and, where the mesh has a data axis, its blocked
-step, by the measures of `tests/test_torch_dense_mesh.py`:
+rank 0's one-card steps, by the measures of
+`tests/test_torch_dense_mesh.py`:
 
   * loss and ce within 3e-4 relative, the grad norm within 2e-2;
   * mu and |g| = sqrt(nu / 0.05): each leaf's least-squares factor to the
-    no-mesh leaf within 2e-2 of 1 (a share missing or counted twice, or
+    one-card leaf within 2e-2 of 1 (a share missing or counted twice, or
     rows of the wrong batch block, move the embedding table's far from
     it) and the relative norm of the difference over the whole state
     within 2e-2;
   * the params within a bf16 ulp where both first moments clear 1e-6 with
-    one sign, on 99% of the elements whose no-mesh moment clears it, and
+    one sign, on 99% of the elements whose one-card moment clears it, and
     within 2 lr everywhere.
 
 Prints the cards' names and power limits, one JSON line a rank, case and
 mesh (walls, peak memory, bytes held, launches, and on rank 0 the state
 measures against each reference), then the summary, and exits non-zero
-when a mesh step misses the no-mesh step's measures or a step launches
-the flash kernel other than twice a layer.  The process group is started
-on `tcp://localhost` at a free port and ended by every rank; a
-collective that waits five minutes fails the run.
+when a mesh step misses its one-card step's measures, a loss is not
+finite, or a step launches the flash kernel other than twice a layer.
+The process group is started on `tcp://localhost` at a free port and
+ended by every rank; a collective that waits five minutes fails the run.
 """
 from __future__ import annotations
 
@@ -58,6 +79,7 @@ import argparse
 import dataclasses
 import datetime
 import json
+import math
 import os
 import socket
 import subprocess
@@ -75,14 +97,52 @@ BLOCKS = (2, 4)            # the batch's blocks under data 2 and 4
 SIGN_FLOOR, HELD_SHARE = 1e-6, 0.99
 
 
-def cases(n: int):
-    """(name, config overrides, meshes) for n ranks."""
+def cases(n: int, group: str = "all"):
+    """The cases for n ranks, those of `group` ("dense", "moe" or "all"):
+    each a dict of its name, arch, config overrides, meshes, and whether
+    rank 0 holds it against its one-card no-mesh step (`reference`), also
+    in batch blocks (`blocks`), and against its one-card split step on a
+    1 x 1 mesh, which then decides (`split_reference`); whether it runs
+    with the capacity raised so that no token drops and the aux loss out
+    of the loss (`no_drop`), or keeps its whole params on the host
+    (`host`: a model whose whole state fits no card)."""
     half = [(n // 2, 2)] if n % 2 == 0 and n > 2 else []
     many = [(1, n), (n, 1)] if n > 1 else [(1, 1)]
-    return [("minicpm-2b", {}, half + many),
-            ("minicpm-2b-h6kv3", dict(name="minicpm-2b-h6kv3", n_heads=6,
-                                      n_kv_heads=3, n_layers=8),
-             half + many[:1])]
+    out = [
+        dict(name="minicpm-2b", arch="minicpm-2b", replace={},
+             meshes=half + many, reference=True, blocks=True, group="dense"),
+        dict(name="minicpm-2b-h6kv3", arch="minicpm-2b",
+             replace=dict(name="minicpm-2b-h6kv3", n_heads=6, n_kv_heads=3,
+                          n_layers=8),
+             meshes=half + many[:1], reference=True, blocks=True,
+             group="dense"),
+        dict(name="deepseek-v2-lite-16b@4", arch="deepseek-v2-lite-16b",
+             replace=dict(n_layers=4), meshes=half + many, reference=True,
+             no_drop=True, split_reference=True, group="moe"),
+        dict(name="deepseek-v2-lite-16b", arch="deepseek-v2-lite-16b",
+             replace={}, meshes=half + many, host=True, group="moe"),
+        dict(name="qwen3-moe-235b-a22b@2", arch="qwen3-moe-235b-a22b",
+             replace=dict(n_layers=2), meshes=half + many[:1],
+             group="moe"),
+    ]
+    return [c for c in out if group in ("all", c["group"])]
+
+
+def case_config(case, cpu: bool):
+    """A case's config: its arch's (smoke on the CPU), its overrides, and
+    for `no_drop` a capacity factor of ceil(n_experts / moe_topk), so
+    every expert has room for every token of a block, and
+    router_aux_weight 0 (the aux is the origin rank's block's, not the
+    batch's)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(case["arch"], smoke=cpu),
+                              **case["replace"])
+    if case.get("no_drop"):
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=float(math.ceil(cfg.n_experts
+                                                 / cfg.moe_topk)),
+            router_aux_weight=0.0)
+    return cfg
 
 
 def _paths(tree, pre=""):
@@ -203,12 +263,58 @@ def _compare(torch, get, ref, p0, names=None):
     return out
 
 
+def _held_gib(torch, tree) -> float:
+    from repro_torch.tree import tree_flatten
+    return sum(t.numel() * t.element_size()
+               for t in tree_flatten(tree)) / 2**30
+
+
+def _references(torch, cfg, case, params0, batch, step_fn, free):
+    """Rank 0, alone on its card: the no-mesh step (twice, for its wall)
+    and for a case with `blocks` the blocked steps (see the module
+    docstring).  (the JSON line, {name: (metrics, host state)}, the
+    initial params on the host)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_flatten, tree_map
+    dev = batch["tokens"].device
+    refs, runs = {}, []
+    for i in range(2):
+        p = tree_map(torch.clone, params0)
+        opt = adamw_init(p)
+        runs.append(_step(torch, step_fn, p, opt, batch))
+        if i == 0:
+            refs["whole"] = (runs[0], _host_state(torch, p, opt))
+        del p, opt
+        free()
+    line = {"rank": 0, "case": case["name"], "mesh": None, "runs": runs}
+    p0 = [t.cpu() for t in tree_flatten(params0)]
+    names = _paths(params0)
+    for d in BLOCKS if case.get("blocks") else ():
+        for f32 in (False, True):
+            key = f"blocks{d}" + ("_f32" if f32 else "")
+            p = tree_map(torch.clone, params0)
+            opt = adamw_init(p)
+            m = _blocked_step(torch, cfg, p, opt, batch, d, runs[0]["lr"],
+                              f32)
+            state = _host_state(torch, p, opt)
+            del p, opt
+            free()
+            m["vs_whole"] = _compare(
+                torch, lambda j: tuple(state[k][j].to(dev) for k in state),
+                refs["whole"][1], p0, names)
+            line[key] = m
+            if not f32 and any(x[0] == d for x in case["meshes"]):
+                refs[key] = (m, state)
+            del state
+            free()
+    return line, refs, p0
+
+
 def worker(rank: int, world: int, port: int, out_path: str,
-           cpu: bool = False) -> None:
+           cpu: bool = False, group: str = "all") -> None:
     import torch
     import torch.distributed as dist
     import repro_torch.serving  # noqa: F401  (before launch.steps)
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.mesh import make_debug_mesh
@@ -234,68 +340,69 @@ def worker(rank: int, world: int, port: int, out_path: str,
                             timeout=datetime.timedelta(seconds=300))
     lines = []
     try:
-        for name, replace, meshes in cases(world):
-            cfg = dataclasses.replace(get_config(ARCH, smoke=cpu), **replace)
+        for case in cases(world, group):
+            name, meshes = case["name"], case["meshes"]
+            cfg = case_config(case, cpu)
+            t0 = time.perf_counter()
             params0 = cast_for_training(init_params(cfg, seed=0, device=dev))
+            if case.get("host"):
+                # the whole params wait on the host; each mesh's blocks
+                # are cut there and moved to the card
+                params0 = tree_map(lambda t: t.cpu(), params0)
+                free()
+            init_s = time.perf_counter() - t0
             seq = 64 if cpu else S
             batch = {k: torch.as_tensor(v, device=dev) for k, v in
                      make_batch(cfg, DataConfig(seq_len=seq, global_batch=B),
                                 0).items()}
             step_fn = make_train_step(cfg, peak_lr=LR, warmup=1)
             refs, p0 = {}, None
-            if rank == 0:
-                runs = []
-                for i in range(2):
-                    p = tree_map(torch.clone, params0)
-                    opt = adamw_init(p)
-                    runs.append(_step(torch, step_fn, p, opt, batch))
-                    if i == 0:
-                        refs["whole"] = (runs[0], _host_state(torch, p, opt))
-                    del p, opt
-                    free()
-                line = {"rank": 0, "case": name, "mesh": None, "runs": runs}
-                p0 = [t.cpu() for t in tree_flatten(params0)]
-                names = _paths(params0)
-                for d in BLOCKS:
-                    for f32 in (False, True):
-                        key = f"blocks{d}" + ("_f32" if f32 else "")
-                        p = tree_map(torch.clone, params0)
-                        opt = adamw_init(p)
-                        m = _blocked_step(torch, cfg, p, opt, batch, d,
-                                          runs[0]["lr"], f32)
-                        state = _host_state(torch, p, opt)
-                        del p, opt
-                        free()
-                        m["vs_whole"] = _compare(
-                            torch, lambda j: tuple(
-                                state[k][j].to(dev) for k in state),
-                            refs["whole"][1], p0, names)
-                        line[key] = m
-                        if not f32 and any(x[0] == d for x in meshes):
-                            refs[key] = (m, state)
-                        del state
-                        free()
+            if rank == 0 and case.get("reference"):
+                line, refs, p0 = _references(torch, cfg, case, params0,
+                                             batch, step_fn, free)
                 lines.append(line)
+            if case.get("split_reference"):
+                # every rank builds the 1 x 1 mesh's groups; rank 0 steps
+                mesh = make_debug_mesh(1, 1, device=dev)
+                if rank == 0:
+                    with use_mesh(mesh):
+                        sh = split_shardings(cfg, mesh)
+                        runs = []
+                        for i in range(2):
+                            p = place(params0, sh["params"])
+                            opt = adamw_init(p)
+                            runs.append(_step(torch, step_fn, p, opt, batch))
+                            if i == 0:
+                                refs["one_card_split"] = (
+                                    runs[0], _host_state(torch, p, opt))
+                            del p, opt
+                            free()
+                    line["one_card_split_runs"] = runs
             box = [{k: v[0] for k, v in refs.items()}]
             dist.broadcast_object_list(box, src=0)
-            whole = box[0]["whole"]
+            # the reference that decides: the one-card split step where
+            # the case has one (the same MoE body as every mesh's), else
+            # the no-mesh step
+            gate = ("one_card_split" if "one_card_split" in box[0]
+                    else "whole")
+            whole = box[0].get(gate)
             for data, model in meshes:
                 mesh = make_debug_mesh(data, model, device=dev)
                 runs, measures = [], {}
                 with use_mesh(mesh):
                     sh = split_shardings(cfg, mesh)
                     for i in range(2):
-                        p = place(params0, sh["params"])
+                        p = tree_map(lambda t: t.to(dev),
+                                     place(params0, sh["params"]))
                         opt = adamw_init(p)
-                        held = sum(t.numel() * t.element_size()
-                                   for t in tree_flatten((p, opt))) / 2**30
+                        held = _held_gib(torch, (p, opt))
                         flash = flash_ops.flash_attention
                         flash.launches = 0
                         r = _step(torch, step_fn, p, opt, batch)
                         r["flash_launches"] = flash.launches
                         r["held_gib"] = held
                         runs.append(r)
-                        if i == 1:             # after the timed step
+                        if i == 1 and whole is not None:   # after the timed
                             flat = flat_shardings(sh["params"])
                             trees = [tree_flatten(x)
                                      for x in (p, opt.mu, opt.nu)]
@@ -303,7 +410,8 @@ def worker(rank: int, world: int, port: int, out_path: str,
                             def get(j):        # every rank gathers
                                 return tuple(gather_whole(t[j], flat[j])
                                              for t in trees)
-                            for key in ("whole", f"blocks{data}"):
+                            for key in ("whole", f"blocks{data}",
+                                        "one_card_split"):
                                 if key not in box[0]:
                                     continue
                                 if rank == 0:
@@ -316,24 +424,35 @@ def worker(rank: int, world: int, port: int, out_path: str,
                         del p, opt
                         free()
                 first = runs[0]
-                errs = {k: abs(first[k] - whole[k]) / abs(whole[k])
-                        for k in ("loss", "ce", "grad_norm")}
-                ok = (errs["loss"] <= F32_TOL and errs["ce"] <= F32_TOL
-                      and errs["grad_norm"] <= BF16_TOL
+                ok = (all(math.isfinite(r[k]) for r in runs
+                          for k in ("loss", "ce", "grad_norm"))
                       # the CPU takes the kernel's plain version
                       and all(r["flash_launches"] == (0 if cpu else
                                                       2 * cfg.n_layers)
-                              for r in runs)
-                      and measures.get("whole", {}).get("ok", True))
-                blocked = box[0].get(f"blocks{data}")
+                              for r in runs))
                 line = {"rank": rank, "case": name, "mesh": [data, model],
-                        "runs": runs, "relative_to_whole": errs, "ok": ok}
+                        "runs": runs, "init_s": init_s}
+                if whole is not None:
+                    errs = {k: abs(first[k] - whole[k]) / abs(whole[k])
+                            for k in ("loss", "ce", "grad_norm")}
+                    ok = (ok and errs["loss"] <= F32_TOL
+                          and errs["ce"] <= F32_TOL
+                          and errs["grad_norm"] <= BF16_TOL
+                          and measures.get(gate, {}).get("ok", True))
+                    line[f"relative_to_{gate}"] = errs
+                if gate != "whole" and "whole" in box[0]:
+                    line["relative_to_whole"] = {
+                        k: abs(first[k] - box[0]["whole"][k])
+                        / abs(box[0]["whole"][k])
+                        for k in ("loss", "ce", "grad_norm")}
+                blocked = box[0].get(f"blocks{data}")
                 if blocked is not None:
                     line["relative_to_blocked"] = {
                         k: abs(first[k] - blocked[k]) / abs(blocked[k])
                         for k in ("loss", "ce", "grad_norm")}
                 if measures:
                     line["state"] = measures
+                line["ok"] = ok
                 lines.append(line)
             del params0, refs
             free()
@@ -354,6 +473,9 @@ def main(argv=None) -> int:
     p.add_argument("--cpu", action="store_true",
                    help="smoke configs at S 64 over gloo on the CPU (a "
                         "rehearsal of the script; no card)")
+    p.add_argument("--cases", choices=("all", "dense", "moe"),
+                   default="all", help="the dense cases, the MoE ones, or "
+                                       "both (default)")
     args = p.parse_args(argv)
     n = args.ranks or (4 if args.cpu else torch.cuda.device_count())
     if n < 1 or (not args.cpu and torch.cuda.device_count() < n):
@@ -375,7 +497,8 @@ def main(argv=None) -> int:
     if not args.cpu:
         from repro_torch.kernels import build
         build.build_all()
-    mp.spawn(worker, args=(n, port, args.out, args.cpu), nprocs=n, join=True)
+    mp.spawn(worker, args=(n, port, args.out, args.cpu, args.cases),
+             nprocs=n, join=True)
     lines = []
     for r in range(n):
         with open(f"{args.out}.{r}") as f:
@@ -384,7 +507,8 @@ def main(argv=None) -> int:
         print(json.dumps(line))
     ok = all(line.get("ok", True) for line in lines)
     print(json.dumps({"ok": ok, "ranks": n,
-                      "cases": [[c, m] for c, _, m in cases(n)]}))
+                      "cases": [[c["name"], c["meshes"]]
+                                for c in cases(n, args.cases)]}))
     return 0 if ok else 1
 
 

@@ -21,7 +21,7 @@ manifest names the logical dtype.
     `wait_for_saves` joins the writers;
   * restore reads each leaf into the target's dtype and device and
     raises on a shape mismatch;
-  * a state held in blocks over a mesh (the dense split path) passes its
+  * a state held in blocks over a mesh (the split path) passes its
     sharding tree: save gathers the whole leaves on every rank and rank 0
     writes them, in the same format; restore reads the whole leaves on
     every rank and places this rank's blocks

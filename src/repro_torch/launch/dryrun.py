@@ -25,14 +25,16 @@ no compiler to ask, so the port counts:
     eager PyTorch's unfused count, not a fused program's — plus the
     attention kernels' tallies (their `meta` routes count by formula).  A
     training cell that the step splits (`launch.steps.split_shardings`:
-    the dense GQA families) runs rank 0's split step under the fake mesh:
-    its blocks of the params and moments, its block of the batch, its
-    heads, ff and vocab, so the count is rank 0's per-device count as it
-    is.  Every other cell runs
-    the whole step over the global batch, divided by the chip count (the
-    split the sharding trees describe; those layers do not split
-    themselves).  Without a mesh the port's MoE layer evaluates every
-    expert over every token, and so does this count;
+    the dense GQA and the MoE families, where every leaf places evenly on
+    the mesh) runs rank 0's split step under the fake mesh: its blocks of
+    the params and moments, its block of the batch, its heads, ff, experts
+    and vocab, its tokens routed through the all-to-all body at the
+    config's capacity, so the count is rank 0's per-device count as it
+    is.  Every other cell runs the whole step over the global batch,
+    divided by the chip count (the split the sharding trees describe;
+    those layers do not split themselves).  Without a mesh the port's MoE
+    layer evaluates every expert over every token, and so does this
+    count;
   * temp bytes: the peak of live bytes the step allocates (outputs
     aside): rank 0's in a split cell, else over the chip count;
   * collectives: a split cell's are the ones its step issues, each
@@ -41,7 +43,9 @@ no compiler to ask, so the port counts:
     embedding and the loss, the FSDP gathers over `data` and their
     gradients' reduce-scatters, the loss's reductions over `model`, the
     gradients' all-reduces over the axes a leaf is not split over and the
-    global norm's.  In every other cell: one MoE layer run on `meta` under
+    global norm's, and in the MoE layers the all-to-alls over `model` and
+    the expert stacks' gathers over `data`.  In every other cell: one MoE
+    layer run on `meta` under
     the fake mesh as rank 0 records its all-to-alls, gathers and
     all-reduces (forward, and in training the remat's second forward and
     the backward), times the MoE layers; plus the parameter traffic the
@@ -98,7 +102,8 @@ from repro_torch.nn.moe import moe
 from repro_torch.parallel.collectives import recording_collectives
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
                                            axis_size, local_shape,
-                                           make_spec, place, use_mesh)
+                                           make_spec, place, use_mesh,
+                                           whole_shape)
 from repro_torch.roofline.analysis import (HW, collective_bytes_from_records,
                                            roofline_terms)
 from repro_torch.tree import tree_flatten, tree_map
@@ -374,13 +379,23 @@ def split_count(fn, args, shardings, mesh):
     return local, out, counts, secs, records
 
 
+def places_evenly(values, shardings) -> bool:
+    """Whether every leaf's dims divide over the mesh axes its sharding
+    splits them over (`place` raises where one does not)."""
+    return all(whole_shape(local_shape(t.shape, sh), sh) == tuple(t.shape)
+               for _, t, sh in _pairs(values, shardings))
+
+
 def split_layout(cfg, mesh) -> dict:
     """How rank 0 of a split cell divides attention: whole query heads
     over `model`, or every head on each model rank where they do not
-    divide (`nn.attention.head_plan`)."""
+    divide (`nn.attention.head_plan`); and a MoE config's experts a
+    rank."""
     model = axis_size(mesh, "model")
     plan = head_plan(cfg.n_heads, cfg.n_kv_heads, model, 0)
     return {
+        "experts_per_rank": (cfg.n_experts // model if cfg.n_experts
+                             else None),
         "rank": 0, "model": model,
         "attention": ("every head on each model rank (the query heads do "
                       "not divide over model; the attention weights' model "
@@ -406,12 +421,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     with fake_mesh(multi_pod) as mesh:
         chips = mesh.size()
-        split = (spec.kind == "train"
-                 and split_shardings(cfg, mesh) is not None)
         with use_mesh(mesh):
             fn, args, shardings, donated, out_sh = _cell_inputs(cfg, spec,
                                                                 mesh)
         aparams = args[0]
+        split = (spec.kind == "train"
+                 and split_shardings(cfg, mesh) is not None
+                 and places_evenly(aparams, shardings[0]))
         if split:
             local_args, out, counts, t_lower, records = split_count(
                 fn, args, shardings, mesh)

@@ -301,11 +301,13 @@ def param_shardings(cfg: ModelConfig, mesh):
 def split_shardings(cfg: ModelConfig, mesh):
     """{"params", "opt"}: the shardings `make_train_step` takes its state
     in under `mesh` when it splits `cfg`'s layers over it, else None.
-    The one place that picks the dense split path: the dense GQA families
-    (gemma-7b, minicpm-2b, qwen3-32b, yi-34b) split; every other family
-    keeps its dense layers whole on every rank.  `launch.train` places
-    its state and the dry run counts a split step by it."""
-    if not (cfg.family == "dense" and cfg.attn_type == "gqa"):
+    The one place that picks the split path: the dense GQA families
+    (gemma-7b, minicpm-2b, qwen3-32b, yi-34b) and the MoE families
+    (deepseek-v2-lite-16b with MLA attention, qwen3-moe-235b-a22b with
+    GQA) split; the recurrent and input-mode families keep their layers
+    whole on every rank.  `launch.train` places its state and the dry
+    run counts a split step by it."""
+    if cfg.family not in ("dense", "moe"):
         return None
     psh = param_shardings(cfg, mesh)
     return {"params": psh, "opt": opt_shardings(psh, mesh)}

@@ -17,13 +17,14 @@ forward and the reference's flash backward on causal attention layers,
 then AdamW in place.  Runs on the card unless `--device cpu`.  The step
 runs under `--mesh`'s mesh (`parallel.sharding.use_mesh`): `none`, or
 `debug`, a 1 x 1 (data, model) mesh on one rank (a one-rank NCCL group
-on the card, gloo with `--device cpu`), whose MoE layers take the
-reference's expert-parallel bodies (capacity dispatch and all-to-all);
-`pod` and `multipod` need 256 and 512 ranks and raise on fewer.  Under a
-mesh a dense GQA family trains on the split path
-(`launch.steps.split_shardings`): after `init_params` the params and
-moments are placed into this rank's blocks, a restore places its leaves
-the same way, and a checkpoint gathers them whole (rank 0 writes).
+on the card, gloo with `--device cpu`); `pod` and `multipod` need 256
+and 512 ranks and raise on fewer.  Under a mesh the dense GQA and the
+MoE families train on the split path (`launch.steps.split_shardings`;
+the MoE layers route each rank's tokens through the reference's
+expert-parallel all-to-all body, capacity dispatch and drops included):
+after `init_params` the params and moments are placed into this rank's
+blocks, a restore places its leaves the same way, and a checkpoint
+gathers them whole (rank 0 writes).
 """
 from __future__ import annotations
 

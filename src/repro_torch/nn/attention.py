@@ -55,8 +55,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.flash import flash_attention_train
-from repro_torch.nn.layers import apply_rope, rmsnorm, rope_angles
-from repro_torch.parallel.collectives import all_gather, reduce_scatter
+from repro_torch.nn.layers import (apply_rope, partial_sum, rmsnorm,
+                                   rope_angles)
+from repro_torch.parallel.collectives import all_gather
 from repro_torch.parallel.sharding import split_mesh
 
 Params = Dict[str, Any]
@@ -301,6 +302,31 @@ def _split_weights(params, cfg: ModelConfig, ctx):
     return w, (Hl, n if grouped else Hl), False
 
 
+def _mla_split_weights(params, cfg: ModelConfig, ctx):
+    """MLA's weights on a split rank, as `_split_weights` gives GQA's:
+    (a params dict with gathered matrices, the query heads it computes,
+    whether it computes every head).  The latent projections `w_dkv` and
+    `w_kr` (and `kv_norm`) are whole over `model`, so every model rank
+    makes the latents of the whole sequence; `w_q`, `w_uk`, `w_uv` and
+    `w_o` hold its heads' columns (rows for `w_o`), gathered over `data`.
+    Where the heads do not divide over `model`, their `model` blocks are
+    gathered too and the rank computes every head."""
+    every = cfg.n_heads % ctx.size("model") != 0
+
+    def data(w, dim):
+        return all_gather(w.to(torch.bfloat16), ctx, "data", dim)
+
+    w = {"kv_norm": params["kv_norm"], "w_dkv": data(params["w_dkv"], 0),
+         "w_kr": data(params["w_kr"], 0)}
+    for name, model_dim, data_dim in (("w_q", 1, 0), ("w_uk", 1, 0),
+                                      ("w_uv", 1, 0), ("w_o", 0, 1)):
+        w[name] = data(params[name], data_dim)
+        if every:
+            w[name] = all_gather(w[name], ctx, "model", model_dim)
+    heads = cfg.n_heads if every else cfg.n_heads // ctx.size("model")
+    return w, heads, every
+
+
 def attention(
     params: Params,
     x: torch.Tensor,                    # (B, S, d_model)
@@ -327,11 +353,16 @@ def attention(
             f"{cfg.name}: attn_type {cfg.attn_type!r} is not ported yet")
     split = (split_mesh() if cache is None and not make_cache
              and cache_pos is None else None)
+    heads, every_head, S_block = None, False, 0
     if split is not None:
         # this rank's (B_l, S / model, d) block -> the whole sequence
         S_block = x.shape[1]
         x = all_gather(x, split, "model", 1)
-        params, heads, every_head = _split_weights(params, cfg, split)
+        if cfg.attn_type == "mla":
+            params, heads, every_head = _mla_split_weights(params, cfg,
+                                                           split)
+        else:
+            params, heads, every_head = _split_weights(params, cfg, split)
     B, S, _ = x.shape
     dev = x.device
     decode = torch.is_tensor(cache_pos)
@@ -346,13 +377,15 @@ def attention(
         positions = cache_pos[:, None]
 
     if cfg.attn_type == "mla":
-        return _mla_attention(params, x, cfg, positions=positions,
-                              cache=cache, cache_pos=cache_pos,
-                              make_cache=make_cache, cache_len=cache_len,
-                              page_table=page_table)
+        o, new_cache = _mla_attention(params, x, cfg, positions=positions,
+                                      cache=cache, cache_pos=cache_pos,
+                                      make_cache=make_cache,
+                                      cache_len=cache_len,
+                                      page_table=page_table, heads=heads)
+        return _project_out(o, params, x.dtype, split, every_head,
+                            S_block), new_cache
 
-    q, k, v = _gqa_qkv(params, x, cfg, positions,
-                       heads if split is not None else None)
+    q, k, v = _gqa_qkv(params, x, cfg, positions, heads)
     H, Hkv = q.shape[2] * q.shape[3], q.shape[2]
     D = cfg.head_dim
     new_cache = None
@@ -417,14 +450,22 @@ def attention(
         if make_cache:
             new_cache = _make_cache(k, v, cfg, layer_window, cache_len or S)
 
-    o = o.to(x.dtype).reshape(B, S, H * D)
-    if split is not None and every_head:
-        # every model rank computed every head: keep its sequence block
+    return _project_out(o, params, x.dtype, split, every_head,
+                        S_block), new_cache
+
+
+def _project_out(o, params, dt, split, every_head: bool, S_block: int):
+    """The heads' outputs o (B, S, H, ·) through `w_o` -> (B, S, d_model).
+    On the split path: a rank that computed every head keeps its sequence
+    block; a rank that computed its own heads holds a partial sum, which
+    is reduce-scattered over `model` into its sequence block."""
+    B, S = o.shape[:2]
+    o = o.to(dt).reshape(B, S, -1)
+    if every_head:
         o = o.narrow(1, split.index("model") * S_block, S_block)
-    y = torch.matmul(o, params["w_o"].to(x.dtype))
     if split is not None and not every_head:
-        y = reduce_scatter(y, split, "model", 1)
-    return y, new_cache
+        return partial_sum(o, params["w_o"].to(dt), split)
+    return torch.matmul(o, params["w_o"].to(dt))
 
 
 def _make_cache(k, v, cfg: ModelConfig, layer_window: int, L: int):
@@ -666,7 +707,7 @@ def _mla_absorbed(params, q_nope, q_rope, ckv, kr, valid, cfg: ModelConfig):
 
 
 def _mla_attention(params, x, cfg: ModelConfig, *, positions, cache,
-                   cache_pos, make_cache, cache_len, page_table):
+                   cache_pos, make_cache, cache_len, page_table, heads=None):
     """MLA (the reference's `_mla_attention`): the cache holds the latents
     c_kv (rank kv_lora_rank, RMS-normed) and the shared rotary key k_rope.
 
@@ -684,9 +725,11 @@ def _mla_attention(params, x, cfg: ModelConfig, *, positions, cache,
         kernel: the paged route gathers the row's pages first.
 
     There is no int8 latent cache: the reference ignores kv_cache_dtype
-    for MLA.  Returns (y (B, S, d_model), new_cache)."""
+    for MLA.  `heads` is the count of query heads `params` hold (a split
+    rank's own; the config's by default).  Returns (the heads' outputs
+    (B, S, heads, v_head_dim), new_cache); `attention` projects them."""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = heads or cfg.n_heads
     nope, rope_d, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     dt = x.dtype
     q = torch.matmul(x, params["w_q"].to(dt)).reshape(B, S, H, nope + rope_d)
@@ -752,8 +795,7 @@ def _mla_attention(params, x, cfg: ModelConfig, *, positions, cache,
             for name, val in new.items():
                 new_cache[name][:, :S] = val
 
-    o = o.to(dt).reshape(B, S, H * vdim)
-    return torch.matmul(o, params["w_o"].to(dt)), new_cache
+    return o, new_cache
 
 
 def _paged_scatter(cache, new, cache_pos, page_table):

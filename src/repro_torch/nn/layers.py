@@ -8,15 +8,16 @@ weight to it first, so storing matrices in bf16 changes no value).  The
 table's gradient sums each row's occurrences in f32 and rounds the row
 once (`_Lookup`).
 
-On the dense split path (`parallel.sharding.split_mesh`) `embed` and `mlp`
-take this rank's blocks: `embed` looks its batch block's tokens up in its
-rows of the table (vocab over `model`, the d columns gathered over
-`data`) and reduce-scatters the rows over `model` into its sequence
-block; `mlp` gathers its sequence block over `model`, runs its columns of
-`w_up`/`w_gate` and rows of `w_down` (gathered over `data`) and
-reduce-scatters the partial sums back into the sequence block.
-`vocab_block` gives the table or head block the split loss unembeds
-with.
+On the split path (`parallel.sharding.split_mesh`: the dense GQA and the
+MoE families in training) `embed` and `mlp` take this rank's blocks:
+`embed` looks its batch block's tokens up in its rows of the table (vocab
+over `model`, the d columns gathered over `data`) and reduce-scatters the
+rows over `model` into its sequence block; `mlp` (a dense layer's, and a
+MoE layer's shared experts) gathers its sequence block over `model`, runs
+its columns of `w_up`/`w_gate` and rows of `w_down` (gathered over
+`data`) and reduce-scatters the partial sums back into the sequence block
+(`partial_sum`: in f32, rounded once).  `vocab_block` gives the table or
+head block the split loss unembeds with.
 """
 from __future__ import annotations
 
@@ -186,5 +187,21 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         h = _act(g, act) * h
     else:
         h = _act(h, act)
-    y = torch.matmul(h, w["w_down"])
-    return y if ctx is None else reduce_scatter(y, ctx, "model", 1)
+    if ctx is not None:
+        return partial_sum(h, w["w_down"], ctx)
+    return torch.matmul(h, w["w_down"])
+
+
+def partial_sum(h: torch.Tensor, w: torch.Tensor, ctx) -> torch.Tensor:
+    """`h @ w` where the contracted dim is split over `model`, this rank's
+    sequence block (dim 1) of it, rounded to h's dtype once, as one
+    process rounds the whole product once: each rank's partial product in
+    f32, reduce-scattered over `model` in f32.  (Rounding each partial to
+    bf16 before the sum moves the stream about an ulp, enough to flip a
+    MoE router's pick between near-tied experts.)  A one-rank `model`
+    holds the whole product: it takes the product in h's dtype, as one
+    process does."""
+    if ctx.size("model") == 1:
+        return reduce_scatter(torch.matmul(h, w), ctx, "model", 1)
+    y = torch.matmul(h.float(), w.float())
+    return reduce_scatter(y, ctx, "model", 1).to(h.dtype)

@@ -312,12 +312,13 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     `targets` where `loss_mask` counts.  Differentiable in `params`; with
     `cfg.remat` every block is rematerialized in the backward pass.
 
-    On the dense split path (`parallel.sharding.split_mesh`, which
+    On the split path (`parallel.sharding.split_mesh`, which
     `launch.steps.make_train_step` installs) `params` are this rank's
     blocks, `batch` its block of the batch axes, the residual stream its
     sequence block until the final norm, after which the sequence is
-    gathered over `model`; the loss and its metrics are the whole batch's
-    on every rank."""
+    gathered over `model`; the loss is the sum of the ranks' shares, and
+    it and its metrics are the whole batch's on every rank (the aux the
+    reference's: the rank at mesh coordinate 0's)."""
     split = split_mesh()
     x, prefix_len = _inputs_to_x(params, batch, cfg)
     x, _, aux = apply_stack(params["stack"], x, cfg, prefix_len=prefix_len)
@@ -338,6 +339,10 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         mask = (torch.ones(targets.shape, device=x.device) if mask is None
                 else mask[:, 1:].float())
     ce, cnt = _chunked_ce(params, x, targets, mask, cfg)
+    if split is not None and any(cfg.layer_is_moe):
+        # the MoE layers' aux shares (`nn.moe._aux_share`) summed over the
+        # ranks: the origin rank's aux, on every rank
+        aux = psum(aux, split, split.axis_names)
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 

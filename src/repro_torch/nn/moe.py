@@ -19,11 +19,10 @@ launches.
 Under an installed mesh (`parallel.sharding.use_mesh`) `moe` runs the
 reference's `shard_map` bodies on every rank of a `torch.distributed`
 device mesh.  Experts are split over the `model` axis; within each expert
-the weights are FSDP-split over `data` and all-gathered per layer.  Each
-rank takes its block of `x` and of the expert stacks by its mesh
-coordinates out of the whole tensors it holds, and the collectives run
-over the mesh's axis groups (autograd Functions over `torch.distributed`
-calls, so a training step differentiates through them):
+the weights are FSDP-split over `data` and all-gathered per layer.  The
+collectives run over the mesh's axis groups (autograd Functions over
+`torch.distributed` calls, so a training step differentiates through
+them):
   * all-to-all (train / prefill, `_moe_body_a2a`): tokens split over the
     batch axes and, by sequence, over `model`; each rank routes its tokens
     and packs per-expert capacity buffers (`_pack_dispatch`, a capacity
@@ -32,22 +31,35 @@ calls, so a training step differentiates through them):
   * replicated tokens (decode, `_moe_body_replicated`): tokens replicated
     over `model`; each rank evaluates only its local experts, masked by
     the routing, and the partial outputs are summed by `all_reduce`.
-The shared experts' MLP runs on the rank's own token block (on the
-replicated path, model rank 0's output is the one autograd follows), and
-the output is gathered back to the global (B, S, D) on every rank.  The
-aux loss is what the reference's `out_specs P()` hands back: the value of
-the rank at mesh coordinate 0 (on the replicated path after its mean over
-`model`), which every rank receives.
 
-Gradients: MoE families run under a mesh with their dense layers whole
-on every rank (the dense split, `launch.steps.split_shardings`, takes
-the dense GQA families only), and every rank computes the same loss, so
-every rank's gradient of a dense leaf is already the one-process
-gradient.  `moe` keeps that: its input and its parameters enter through
-`_Replicated`, whose backward sums the rank's share over the whole mesh,
-so every rank ends with the one-process gradient of `x` and of every MoE
-leaf, and a training step applies each rank's gradients as they are,
-with no reduction of its own.
+Two layouts call the bodies:
+
+  * the split path (training, `launch.steps.split_shardings`, read
+    through `parallel.sharding.split_mesh`): `x` is the rank's
+    (B_l, S / model, D) block of the sequence-split residual stream,
+    exactly the reference's `in_specs P(ba, "model", None)`, and the
+    expert stacks are the rank's placed blocks; the all-to-all body runs
+    on them as they are and the output stays the rank's block.  The
+    shared experts take the dense split (`nn.layers.mlp`).  The router
+    is a whole leaf: each rank's gradient of it is its tokens' share,
+    which the step all-reduces over the mesh.  The loss is the sum of
+    the ranks' shares, and the aux loss enters it as `_aux_share` hands
+    it over: the value of the rank at mesh coordinate 0 (the reference's
+    `out_specs P()`), counted once, with the reference's gradient, the
+    mean of the ranks' own aux gradients (its transpose divides the
+    replicated output's cotangent by the mesh size);
+  * the whole-tensor path (prefill and decode under a mesh):
+    every rank holds the whole (B, S, D) input and the whole stacks,
+    takes its block of each by its mesh coordinates, and gathers the
+    output back to the global (B, S, D) on every rank.  The shared
+    experts' MLP runs on the rank's own token block (on the replicated
+    path, model rank 0's output is the one autograd follows).  Every
+    rank computes the same loss, so the input and the parameters enter
+    through `_Replicated`, whose backward sums the rank's share over the
+    whole mesh, and each rank ends with the one-process gradient.  The
+    aux loss is the value of the rank at mesh coordinate 0 (on the
+    replicated path after its mean over `model`), which every rank
+    receives.
 
 The collectives are `repro_torch.parallel.collectives`' Functions; under
 its `recording_collectives()` they leave a record each for the dry run's
@@ -66,7 +78,8 @@ from repro_torch.nn.layers import _act, mlp, mlp_specs
 from repro_torch.parallel.collectives import (  # noqa: F401
     _AllToAll, _GatherBlocks, _Owned, _Psum, _Replicated, all_gather,
     recording_collectives)
-from repro_torch.parallel.sharding import MeshCtx, batch_axes, current_mesh
+from repro_torch.parallel.sharding import (MeshCtx, batch_axes, current_mesh,
+                                           split_mesh)
 
 Params = Dict[str, Any]
 
@@ -230,13 +243,15 @@ def _moe_body_a2a(xb, router, w_gate, w_up, w_down, cfg: ModelConfig,
     model = ctx.group("model")
     # (E, C, D) -> (M, E_loc, C, D) -> exchange -> (M, E_loc, C, D)
     # source-major
-    recv = _AllToAll.apply(buf.reshape(model_size, e_loc, cap, D), model)
+    recv = _AllToAll.apply(buf.reshape(model_size, e_loc, cap, D), model,
+                           "model")
     toks = recv.transpose(0, 1).reshape(e_loc, model_size * cap, D)
     w_gate, w_up, w_down = _gathered_weights(w_gate, w_up, w_down, ctx)
     y = _expert_ffn(w_gate.to(xb.dtype), w_up.to(xb.dtype),
                     w_down.to(xb.dtype), toks, cfg.act).to(xb.dtype)
     y = y.reshape(e_loc, model_size, cap, D).transpose(0, 1)
-    back = _AllToAll.apply(y, model).reshape(cfg.n_experts * cap, D)
+    back = _AllToAll.apply(y, model, "model").reshape(cfg.n_experts * cap,
+                                                      D)
     gathered = back[torch.clamp(slot, 0, cfg.n_experts * cap - 1)]
     contrib = (gathered.float() * gate[:, None]).reshape(T, k, D)
     # each token's k contributions sum in pick order (the scatter-add's
@@ -346,12 +361,37 @@ def _moe_stacked(params: Params, x: torch.Tensor, cfg: ModelConfig
     return _finish(params, out, x, cfg), aux
 
 
+def _aux_share(aux: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """This rank's share of the aux loss in a loss summed over the ranks:
+    the origin rank's aux as its value (0 on every other rank), and as its
+    gradient 1 / (mesh size) of the rank's own aux's."""
+    own = aux / math.prod(ctx.size(name) for name in ctx.axis_names)
+    origin = all(ctx.index(name) == 0 for name in ctx.axis_names)
+    return own + (aux * float(origin) - own).detach()
+
+
+def _moe_split(params: Params, x: torch.Tensor, cfg: ModelConfig,
+               ctx: MeshCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split path (see the module docstring): x and y this rank's
+    (B_l, S / model, D) block, the aux its share."""
+    y, aux = _moe_body_a2a(x, params["router"], params["w_gate"],
+                           params["w_up"], params["w_down"], cfg,
+                           ctx.size("model"), ctx)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, cfg.act)
+    return y, _aux_share(aux, ctx)
+
+
 def moe(params: Params, x: torch.Tensor, cfg: ModelConfig,
         decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux).  Without a mesh: the stacked
-    form of `moe_reference`.  Under a mesh: the replicated-token body for
-    `decode` or one-token inputs, else the all-to-all body (see the module
-    docstring)."""
+    form of `moe_reference`.  On the split path: the all-to-all body on
+    this rank's blocks.  Under a mesh otherwise: the replicated-token body
+    for `decode` or one-token inputs, else the all-to-all body (see the
+    module docstring)."""
+    split = split_mesh()
+    if split is not None:
+        return _moe_split(params, x, cfg, split)
     ctx = current_mesh()
     if ctx is None:
         return _moe_stacked(params, x, cfg)

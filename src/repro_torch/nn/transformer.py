@@ -23,13 +23,16 @@ input and runs the block again in the backward pass, under the mesh the
 forward ran under (autograd runs a CUDA backward on a thread of its own,
 where the thread-local mesh is not installed).
 
-On the dense split path (`launch.steps.split_shardings`) the stream
-between blocks is this rank's ("batch", "sp", None) block and RMSNorm
-runs on it; attention and the MLP gather and scatter the sequence
-themselves.  The recomputation runs under the same split mesh, so every
+On the split path (`launch.steps.split_shardings`: the dense GQA and
+the MoE families) the stream between blocks is this rank's ("batch",
+"sp", None) block and RMSNorm runs on it; attention and the MLP gather
+and scatter the sequence themselves, and the MoE layer routes the block
+as it is.  The recomputation runs under the same split mesh, so every
 rank issues the forward's collectives in the same order again (torch's
 checkpoint stops it after the last tensor the backward needs, on every
-rank alike: the MLP's closing reduce-scatter is not re-issued).
+rank alike: a block's closing reduce-scatter is not re-issued).  The
+MoE layer's all-to-alls depend on no value, only on shapes, so the
+recomputation issues them on every rank alike too.
 """
 from __future__ import annotations
 

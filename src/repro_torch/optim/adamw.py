@@ -9,7 +9,7 @@ parameter and moment tensors; a large leaf is updated in slices along
 its first axis, which bounds the f32 scratch and computes the same
 values.
 
-On the dense split path (`parallel.sharding.split_mesh`, which the
+On the split path (`parallel.sharding.split_mesh`, which the
 training step installs) each rank holds blocks of the params, gradients
 and moments and updates its blocks; the global norm is then the square
 root of the sum of squares over every block, each leaf counted once: the

@@ -6,24 +6,25 @@ plain tensors.
 
 Two families, by what the loss is on each rank:
 
-  * the MoE bodies (`nn.moe`, PR 30's path): every rank computes the same
-    loss from the global output, so each rank's backward through a body
-    gives its own share of the gradient and `_Replicated` sums the shares
-    at the layer's inputs.  An output gathered for every rank hands back
-    the rank's own slice (`_GatherBlocks`), a sum for every rank passes
-    its gradient through (`_Psum`), an all-to-all runs in reverse
-    (`_AllToAll`), and the expert weights gathered over 'data' take the
-    split path's `all_gather`, whose backward reduce-scatters their
-    gradients;
-  * the dense split path (`launch.steps.split_shardings`): each rank's
-    loss is its own share, and the loss of the step is the sum of the
-    shares (`psum`, whose backward passes the gradient through, makes
-    that sum on every rank).  Each collective's backward is its transpose
-    over the same group: `all_gather` along a dim reduce-scatters the
-    gradient, `reduce_scatter` all-gathers it, `all_reduce` all-reduces
-    it.  A leaf's gradient is then the one-process gradient once it is
-    summed over the mesh axes the leaf is not split over
-    (`launch.steps.make_train_step`).
+  * the MoE layer's whole-tensor path (`nn.moe`, prefill and decode
+    under a mesh): every rank computes the same loss from the global
+    output, so each rank's backward through a body gives its own share of
+    the gradient and `_Replicated` sums the shares at the layer's inputs.
+    An output gathered for every rank hands back the rank's own slice
+    (`_GatherBlocks`), a sum for every rank passes its gradient through
+    (`_Psum`), an all-to-all runs in reverse (`_AllToAll`), and the
+    expert weights gathered over 'data' take the split path's
+    `all_gather`, whose backward reduce-scatters their gradients;
+  * the split path (`launch.steps.split_shardings`: the dense and MoE
+    families in training): each rank's loss is its own share, and the
+    loss of the step is the sum of the shares (`psum`, whose backward
+    passes the gradient through, makes that sum on every rank).  Each
+    collective's backward is its transpose over the same group:
+    `all_gather` along a dim reduce-scatters the gradient,
+    `reduce_scatter` all-gathers it, `all_reduce` all-reduces it, and the
+    MoE body's `_AllToAll` exchanges it back.  A leaf's gradient is then
+    the one-process gradient once it is summed over the mesh axes the
+    leaf is not split over (`launch.steps.make_train_step`).
 
 `recording_collectives()` makes every collective here leave a record
 (kind, result bytes, group size), with the mesh axis it ran over as the
@@ -86,13 +87,14 @@ def _record(kind: str, result: torch.Tensor, group,
 
 
 # ------------------------------------------------------------ the calls
-def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+def _exchange(t: torch.Tensor, group,
+              axis: Optional[str] = None) -> torch.Tensor:
     """Slice i of `t`'s leading axis goes to rank i of the group; slice i
     of the result came from rank i."""
     t = t.contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
-    _record("all-to-all", out, group)
+    _record("all-to-all", out, group, axis)
     return out
 
 
@@ -182,16 +184,17 @@ class _GatherBlocks(torch.autograd.Function):
 
 
 class _AllToAll(torch.autograd.Function):
-    """`lax.all_to_all(split_axis=0, concat_axis=0)` over the group."""
+    """`lax.all_to_all(split_axis=0, concat_axis=0)` over the group of
+    mesh axis `axis`."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return _exchange(t, group)
+    def forward(ctx, t, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return _exchange(t, group, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return _exchange(grad, ctx.group), None
+        return _exchange(grad, ctx.group, ctx.axis), None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -210,7 +213,7 @@ class _Psum(torch.autograd.Function):
         return grad, None
 
 
-# ------------------------------------------- the dense split's Functions
+# ------------------------------------------------- the split path's Functions
 class _AllGather(torch.autograd.Function):
     """Blocks concatenated along `dim`; backward, the gradients summed and
     scattered back along `dim`."""

@@ -20,21 +20,23 @@ tensor lives on a mesh.  `place` turns whole leaves into this rank's
 blocks under a sharding tree (an uneven split raises, naming the leaf and
 the axis) and `gather_whole` rebuilds whole leaves from the blocks.
 
-Two layers split their work over an installed mesh:
+Two paths split their work over an installed mesh:
 
-  * the dense GQA families in training (`launch.steps.split_shardings`
-    decides; `launch.steps.make_train_step` installs the path for its
-    step with `splitting`, and the layers read it with `split_mesh`):
-    every rank holds
-    its block of the params and AdamW state, computes its block of the
-    batch over the batch axes and its block of the heads, ff and vocab
-    over `model`, and carries the residual stream as its
-    ("batch", "sp", None) block, gathered along the sequence over `model`
-    before attention and the MLP and reduce-scattered after them.  FSDP
-    leaves are gathered over `data` at each use.  The collectives are
-    `parallel.collectives`' Functions;
-  * the MoE layer's expert-parallel bodies (`nn.moe`), which slice each
-    rank's block out of the whole tensors the rank holds.
+  * the split path: the dense GQA and the MoE families in training
+    (`launch.steps.split_shardings` decides; `launch.steps.make_train_step`
+    installs the path for its step with `splitting`, and the layers read
+    it with `split_mesh`).  Every rank holds its block of the params and
+    AdamW state, computes its block of the batch over the batch axes and
+    its block of the heads (GQA's, or MLA's with the latents whole over
+    `model`), ff, experts and vocab over `model`, and carries the
+    residual stream as its ("batch", "sp", None) block, gathered along
+    the sequence over `model` before attention and the MLP and
+    reduce-scattered after them; the MoE layer routes the block itself
+    through its all-to-all body.  FSDP leaves are gathered over `data` at
+    each use.  The collectives are `parallel.collectives`' Functions;
+  * the MoE layer's whole-tensor path (prefill and decode under a mesh,
+    `nn.moe`), whose expert-parallel bodies slice each rank's block out of
+    the whole tensors the rank holds.
 
 Every other layer holds whole tensors on every rank.
 """
@@ -78,7 +80,7 @@ class MeshCtx:
     versions rebuild on each read: tensor ops inside a rematerialized
     block must be the same in its recomputation."""
     mesh: Any          # torch.distributed.device_mesh.DeviceMesh
-    split: bool = False   # the dense split path is on (`splitting`)
+    split: bool = False   # the split path is on (`splitting`)
     # on it, the mesh axes each param leaf is split over (`split_axes`),
     # one tuple a leaf in `tree_flatten` order
     leaf_axes: Optional[Tuple[Tuple[str, ...], ...]] = None
@@ -117,8 +119,8 @@ class MeshCtx:
 
 
 def splitting(ctx: MeshCtx, leaf_axes) -> MeshCtx:
-    """`ctx` with the dense split path on (the same groups), each param
-    leaf split over the mesh axes `leaf_axes` names for it."""
+    """`ctx` with the split path on (the same groups), each param leaf
+    split over the mesh axes `leaf_axes` names for it."""
     out = copy.copy(ctx)
     out.split = True
     out.leaf_axes = tuple(tuple(a) for a in leaf_axes)
@@ -126,7 +128,7 @@ def splitting(ctx: MeshCtx, leaf_axes) -> MeshCtx:
 
 
 def split_mesh() -> Optional["MeshCtx"]:
-    """The installed mesh when the dense split path is on, else None."""
+    """The installed mesh when the split path is on, else None."""
     ctx = current_mesh()
     return ctx if ctx is not None and ctx.split else None
 

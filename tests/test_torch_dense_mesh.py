@@ -1,6 +1,6 @@
 """The port's dense split training path (`launch.steps.split_shardings`)
 on the CPU: dense GQA families under (2, 2), (1, 4) and (4, 1) meshes of
-four gloo ranks (spawned `tests/dense_mesh_worker.py` processes on a
+four gloo ranks (spawned `tests/split_mesh_worker.py` processes on a
 `FileStore` under a temporary directory, once per mesh; no port is
 opened), each rank holding its block of the params and AdamW state and
 computing its block of the batch, heads, ff and vocab with a
@@ -50,24 +50,15 @@ sequence-split residual stream:
     read.
 """
 import contextlib
-import dataclasses as dc
 import io
 import json
-import os
-import pathlib
 import re
-import subprocess
-import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from repro.configs import get_config as ref_config
-from repro.nn.model import init_params as ref_init_params
 import repro_torch.serving  # noqa: F401  (before launch.steps)
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.data.pipeline import DataConfig, make_batch
@@ -82,17 +73,14 @@ from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import (MeshCtx, NamedSharding,
                                            PartitionSpec, gather_whole, place,
                                            splitting, use_ctx, use_mesh)
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten
 
-from dense_mesh_worker import case_config
+from split_mesh_worker import (BF16_TOL, F32_TOL, case_config,
+                               check_split_step, finish, one_process,
+                               run_meshes, start_reference, write_inputs)
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESHES = [(2, 2), (1, 4), (4, 1)]
 B, S = 4, 16
-F32_TOL = 3e-4
-BF16_TOL = 2e-2
-SIGN_FLOOR = 1e-6
-HELD_SHARE = 0.99
 STEP = dict(lr=1e-3, warmup=4, total=100, step=3)
 CASES = [
     dict(name="gemma", arch="gemma-7b", ckpt=True, **STEP),
@@ -102,189 +90,33 @@ CASES = [
          **STEP),
 ]
 
-# the reference's sharded step, as the test prints it (a fresh process:
-# the forced device count must be set before jax starts)
-REF_STEP = """
-import json, sys
-import jax, jax.numpy as jnp, numpy as np
-from repro.configs import get_config
-from repro.data.pipeline import DataConfig, make_batch
-from repro.launch.mesh import make_debug_mesh
-from repro.launch.steps import (batch_shardings, make_train_step,
-                                opt_shardings, param_shardings)
-from repro.nn.model import init_params
-from repro.optim.adamw import adamw_init
-from repro.parallel.sharding import use_mesh
-arch, B, S, lr, warmup, total, step = json.loads(sys.argv[1])
-cfg = get_config(arch, smoke=True)
-p = init_params(jax.random.PRNGKey(0), cfg)
-p = jax.tree.map(lambda a: a.astype(jnp.bfloat16)
-                 if jnp.issubdtype(a.dtype, jnp.floating) and a.ndim >= 2
-                 else a, p)
-batch = {k: jnp.asarray(v) for k, v in make_batch(
-    cfg, DataConfig(seq_len=S, global_batch=B), 0).items()}
-mesh = make_debug_mesh(2, 2)
-with use_mesh(mesh):
-    psh = param_shardings(cfg, mesh)
-    osh = opt_shardings(psh, mesh)
-    bsh = batch_shardings(cfg, mesh)
-    bsh = {k: bsh[k] for k in batch}
-    fn = jax.jit(make_train_step(cfg, peak_lr=lr, warmup=warmup, total=total),
-                 in_shardings=(psh, osh, bsh, None),
-                 out_shardings=(psh, osh, None))
-    _, _, m = fn(p, adamw_init(p), batch, jnp.int32(step))
-print(json.dumps({k: float(v) for k, v in m.items()}))
-"""
-
-
-def _bf16_leaves(arch_case):
-    """The reference trainer's params for a case: whole, bf16 matrices."""
-    cfg = case_config(arch_case)
-    rcfg = dc.replace(ref_config(arch_case["arch"], smoke=True),
-                      **arch_case.get("replace", {}))
-    p = ref_init_params(jax.random.PRNGKey(0), rcfg)
-    p = jax.tree.map(lambda a: a.astype(jnp.bfloat16)
-                     if jnp.issubdtype(a.dtype, jnp.floating) and a.ndim >= 2
-                     else a, p)
-    leaves = [np.asarray(a) for a in jax.tree.leaves(p)]
-    like = tree_flatten(init_params(cfg, device="meta"))
-    assert [tuple(a.shape) for a in leaves] == [tuple(t.shape) for t in like]
-    return leaves
-
-
-def _torch(a: np.ndarray) -> torch.Tensor:
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
-
-
-def _spawn(tmp, data, model, inputs):
-    out = tmp / f"mesh{data}x{model}"
-    out.mkdir()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "dense_mesh_worker.py"),
-         str(out / "store"), str(r), str(data), str(model), str(inputs),
-         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(data * model)]
-    return out, procs
-
-
-def _wait(procs, timeout=240):
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=timeout)
-            errs.append((p.returncode, err[-3000:]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(rc == 0 for rc, _ in errs), errs
-
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every mesh's four ranks, the reference's 2 x 2 step and the port's
     one-process step of every case, run once for the module."""
     tmp = tmp_path_factory.mktemp("dense_mesh")
-    inputs, whole = {"cases": json.dumps(CASES)}, {}
-    for case in CASES:
-        c = case["name"]
-        leaves = _bf16_leaves(case)
-        whole[c] = leaves
-        inputs[f"{c}__dtypes"] = json.dumps([a.dtype.name for a in leaves])
-        for i, a in enumerate(leaves):
-            inputs[f"{c}__p{i}"] = (a.view(np.uint16)
-                                    if a.dtype.name == "bfloat16" else a)
-        inputs[f"{c}__tokens"] = make_batch(
-            case_config(case), DataConfig(seq_len=S, global_batch=B),
-            0)["tokens"]
-    np.savez(tmp / "in.npz", **inputs)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    ref = subprocess.Popen(
-        [sys.executable, "-c", REF_STEP, json.dumps(
-            ["gemma-7b", B, S, STEP["lr"], STEP["warmup"], STEP["total"],
-             STEP["step"]])],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
-    outs = {}
+    inputs, whole = write_inputs(tmp / "in.npz", CASES, B, S)
+    ref = start_reference(CASES[:1], B, S, STEP)
     try:
-        for data, model in MESHES:
-            out, procs = _spawn(tmp, data, model, tmp / "in.npz")
-            _wait(procs)
-            outs[data, model] = (out, [dict(np.load(out / f"r{r}.npz"))
-                                       for r in range(data * model)])
-        ref_out, ref_err = ref.communicate(timeout=240)
+        outs = run_meshes(tmp, MESHES, tmp / "in.npz")
+        ref_out, = finish([ref])
     finally:
         if ref.poll() is None:
             ref.kill()
             ref.wait()
-    assert ref.returncode == 0, ref_err[-3000:]
-    one = {}
-    for case in CASES:
-        c = case["name"]
-        cfg = case_config(case)
-        like = init_params(cfg, device="meta")
-        params = tree_unflatten(like, [_torch(a) for a in whole[c]])
-        batch = {"tokens": torch.from_numpy(inputs[f"{c}__tokens"])}
-        step = make_train_step(cfg, peak_lr=case["lr"],
-                               warmup=case["warmup"], total=case["total"])
-        p0 = [t.float().numpy() for t in tree_flatten(params)]
-        p2, o2, m = step(params, adamw_init(params), batch, case["step"])
-        one[c] = {"p0": p0, "p": tree_flatten(p2), "mu": tree_flatten(o2.mu),
-                  "nu": tree_flatten(o2.nu), "m": m}
-    return {"meshes": outs, "ref": json.loads(ref_out.strip()
-                                              .splitlines()[-1]),
-            "one": one}
+    return {"meshes": outs,
+            "ref": json.loads(ref_out.strip().splitlines()[-1])["gemma"],
+            "one": one_process(CASES, inputs, whole)}
 
 
 @pytest.mark.parametrize("case", [c["name"] for c in CASES])
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_split_step_matches_the_one_process_step(runs, mesh, case):
     _, ranks = runs["meshes"][mesh]
-    one = runs["one"][case]
-    for r, o in enumerate(ranks):
-        for k in ("loss", "ce", "grad_norm"):
-            want = float(one["m"][k])
-            got = float(o[f"{case}__m_{k}"])
-            tol = BF16_TOL if k == "grad_norm" else F32_TOL
-            assert abs(got - want) <= tol * abs(want), (r, k, got, want)
-        assert float(o[f"{case}__m_tokens"]) == float(one["m"]["tokens"])
+    check_split_step(ranks, runs["one"][case], case, STEP["lr"])
+    for o in ranks:
         assert float(o[f"{case}__m_aux"]) == 0.0
-        assert float(o[f"{case}__m_lr"]) == float(one["m"]["lr"])
-    o = ranks[0]
-    assert int(o[f"{case}__opt_step"]) == 1
-    for name in ("mu", "nu"):
-        got = [o[f"{case}__{name}{i}"] for i in range(len(one[name]))]
-        want = [w.numpy() for w in one[name]]
-        if name == "nu":                  # |g|: nu is 0.05 g^2
-            got, want = [np.sqrt(a) for a in got], [np.sqrt(a) for a in want]
-        for i, (g, w) in enumerate(zip(got, want)):
-            assert g.shape == w.shape
-            # the least-squares factor from the one-process leaf to this
-            # one: a missing or doubled share moves it by 1 / the shares
-            scale = float(np.vdot(g, w) / max(np.vdot(w, w), 1e-30))
-            assert abs(scale - 1.0) <= BF16_TOL, (name, i, scale)
-        err = np.sqrt(sum(np.sum((g - w) ** 2) for g, w in zip(got, want)))
-        ref = np.sqrt(sum(np.sum(w ** 2) for w in want))
-        assert err <= BF16_TOL * ref, (name, err / ref)
-    held = eligible = 0
-    for i, (a0, w, m) in enumerate(zip(one["p0"], one["p"], one["mu"])):
-        got, w, m = o[f"{case}__p{i}"], w.float().numpy(), m.numpy()
-        mu = o[f"{case}__mu{i}"]
-        assert got.shape == w.shape
-        clear = np.abs(m) > SIGN_FLOOR
-        sure = clear & (np.sign(mu) == np.sign(m)) & (np.abs(mu) > SIGN_FLOOR)
-        # a bf16 ulp of the larger of p and the one-process p2
-        ulp = np.maximum(np.abs(a0), np.abs(w)) * 2.0 ** -7 + 1e-3 * STEP["lr"]
-        assert np.all(np.abs(got - w)[sure] <= ulp[sure]), i
-        assert np.all(np.abs(got - w) <= 2 * STEP["lr"] + ulp), i
-        held += int(sure.sum())
-        eligible += int(clear.sum())
-    assert held >= HELD_SHARE * eligible, (held, eligible)
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")

@@ -504,3 +504,52 @@ def test_run_cell_split_gathers_heads_that_do_not_divide():
     # stops before it); in the backward each one's transpose
     assert model["n_all-gather"] == (6 + 6 + 1) * L + 2
     assert model["n_reduce-scatter"] == (1 + 0 + 6) * L + 2
+
+
+# -------------------------------------------------------- the MoE split
+def test_run_cell_split_moe_train_counts_rank_zero(monkeypatch):
+    """A MoE train cell counts rank 0's split step on the (16, 16) mesh:
+    deepseek smoke widened to 16 MLA heads and 16 experts, so every dim
+    of the step splits over the mesh (one head and one expert a rank).
+    With the capacity factor at n_experts / moe_topk no token drops, and
+    rank 0's FLOPs times the chips are the whole step's plus the latents
+    every model rank makes again (`w_dkv` and `w_kr` are whole over
+    `model`: 15 more copies of their products, in the forward pass, the
+    recomputation and the backward's two), within 0.5%.  Its collectives
+    are the ones the step issues, with the MoE layer's all-to-alls over
+    `model`: one each way in the forward pass, the recomputation and the
+    backward."""
+    base = get_config("deepseek-v2-lite-16b", smoke=True)
+    cfg = dc.replace(base, n_heads=16, n_kv_heads=16, n_experts=16,
+                     capacity_factor=16 / base.moe_topk)
+    monkeypatch.setattr(dryrun, "get_config", lambda arch, smoke=False: cfg)
+    cell = dryrun.run_cell("deepseek-v2-lite-16b", "train_4k",
+                           multi_pod=False, smoke=True)
+    _check_cell(cell, "deepseek-v2-lite-16b", "train_4k", False)
+    assert cell["collectives_not_counted"] == []
+    assert cell["dense_split"]["experts_per_rank"] == 1
+    assert cell["dense_split"]["q_heads_per_rank"] == 1
+    ap = abstract_params(cfg)
+    B, S = 16, 128
+    _, whole, _ = dryrun.count_step(
+        make_train_step(cfg), (ap, abstract_opt_state(ap),
+                               make_batch_specs(cfg, DataConfig(S, B)), 1),
+        train=True)
+    latents = 2 * B * S * cfg.d_model * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+    want = whole["flops"] + 15 * 4 * latents * cfg.n_layers
+    assert abs(cell["probe"]["flops"] * 256 - want) <= 0.005 * want
+    n_moe = sum(cfg.layer_is_moe)
+    model = cell["collectives_by_axis"]["model"]
+    assert model["n_all-to-all"] == 6 * n_moe
+    assert cell["collectives_by_axis"]["data"]["n_all-to-all"] == 0
+    assert cell["kernel_calls"] == {"flash_attention": 2 * cfg.n_layers}
+
+
+def test_run_cell_moe_train_that_does_not_place_evenly():
+    """deepseek smoke's 8 experts do not split over 16 model ranks: its
+    train cell counts the whole step over the chips, as the cells whose
+    layers do not split, and names what that leaves out."""
+    cell = dryrun.run_cell("deepseek-v2-lite-16b", "train_4k",
+                           multi_pod=False, smoke=True)
+    assert cell["dense_split"] is None
+    assert any("do not split" in n for n in cell["collectives_not_counted"])
